@@ -1,0 +1,14 @@
+"""lightfm_tpu_torch: the PyTorch / CUDA port of lightfm_tpu.
+
+It serves models (``predict``, ``predict_rank`` and the evaluation metrics,
+``recommend``) on an NVIDIA GPU through hand-written Hopper kernels; it
+imports neither ``jax`` nor ``lightfm_tpu``.  Training is not ported yet
+(see ROADMAP.md): load a checkpoint that ``lightfm_tpu`` wrote with
+:func:`load_model`.
+"""
+
+from lightfm_tpu_torch.checkpoint import load_model, save_model
+from lightfm_tpu_torch.model import LightFM
+from lightfm_tpu_torch.version import __version__
+
+__all__ = ["LightFM", "save_model", "load_model", "__version__"]

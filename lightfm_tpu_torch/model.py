@@ -1,0 +1,766 @@
+"""The LightFM-compatible hybrid factorization model: serving surface.
+
+Counterpart of ``lightfm_tpu/model.py:83-1420`` minus training: the
+constructor, ``predict``, ``predict_rank``, ``recommend``,
+``get_*_representations``, ``get_params``/``set_params``, pickling and the
+twelve reference state arrays as numpy views that user code may edit in
+place.  ``fit``/``fit_partial`` are not ported yet (see ROADMAP.md); a
+model gets its state from a checkpoint (:func:`lightfm_tpu_torch.load_model`,
+which reads files the JAX package writes) or from
+:mod:`lightfm_tpu_torch.interop`.
+
+``device`` is the one argument the JAX class does not have.  It defaults to
+``"cuda"``; without a CUDA device the constructor raises rather than run on
+the CPU.  Pass ``device="cpu"`` to run the plain PyTorch versions of the
+kernels on the CPU.
+"""
+
+from __future__ import annotations
+
+import weakref
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from lightfm_tpu_torch.config import Hyperparams
+from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
+from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
+from lightfm_tpu_torch.sparse import content_fingerprint, identity_rows, pad_csr
+from lightfm_tpu_torch.state import ModelState
+
+__all__ = ["LightFM"]
+
+CYTHON_DTYPE = np.float32  # the reference's on-disk dtype; kept for parity
+
+# Public attribute name -> (internal fused array, column view).  The
+# reference exposes 12 separate arrays (`lightfm/lightfm.py:243-257`);
+# biases live in the LAST column of each width-padded table.
+_FIELD_MAP = {
+    "item_embeddings": ("item_table", "emb"),
+    "item_biases": ("item_table", "bias"),
+    "item_embedding_gradients": ("item_acc", "emb"),
+    "item_bias_gradients": ("item_acc", "bias"),
+    "item_embedding_momentum": ("item_mom", "emb"),
+    "item_bias_momentum": ("item_mom", "bias"),
+    "user_embeddings": ("user_table", "emb"),
+    "user_biases": ("user_table", "bias"),
+    "user_embedding_gradients": ("user_acc", "emb"),
+    "user_bias_gradients": ("user_acc", "bias"),
+    "user_embedding_momentum": ("user_mom", "emb"),
+    "user_bias_momentum": ("user_mom", "bias"),
+}
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA; a CUDA device must exist (no silent CPU run)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "lightfm_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _predict_pairs(state: ModelState, user_feats, item_feats, user_ids, item_ids):
+    # Lazy-reg scales are folded into the tables at every epoch end, so
+    # prediction skips the scale multiply.
+    u_rep = batch_representation(state.user_table, user_feats, user_ids)
+    i_rep = batch_representation(state.item_table, item_feats, item_ids)
+    return score_pairs(u_rep, i_rep)
+
+
+class LightFM:
+    """A hybrid latent representation recommender model (PyTorch / CUDA).
+
+    Semantics follow the reference LightFM: user/item representations are
+    the weighted sums of their features' embeddings, scores are their dot
+    product plus both biases.
+    """
+
+    def __init__(
+        self,
+        no_components=10,
+        k=5,
+        n=10,
+        learning_schedule="adagrad",
+        loss="logistic",
+        learning_rate=0.05,
+        rho=0.95,
+        epsilon=1e-6,
+        item_alpha=0.0,
+        user_alpha=0.0,
+        max_sampled=10,
+        random_state=None,
+        batch_size=None,
+        mesh=None,
+        table_partition="replicated",
+        shard_examples=False,
+        example_shuffle="global",
+        fast_path="auto",
+        pool_kernels="auto",
+        user_pallas=True,
+        fast_precision="default",
+        shuffle_mode="feistel",
+        device=None,
+    ):
+        # Validation mirrors `lightfm/lightfm.py:205-216`; the rest is
+        # delegated to Hyperparams.__post_init__.
+        if max_sampled < 1:
+            raise ValueError("max_sampled must be a positive integer")
+        Hyperparams(
+            no_components=no_components,
+            k=int(k),
+            n=int(n),
+            learning_schedule=learning_schedule,
+            loss=loss,
+            learning_rate=learning_rate,
+            rho=rho,
+            epsilon=epsilon,
+            item_alpha=item_alpha,
+            user_alpha=user_alpha,
+            max_sampled=max_sampled,
+            batch_size=batch_size,
+            fast_path=fast_path,
+            pool_kernels=pool_kernels,
+            user_pallas=user_pallas,
+            fast_precision=fast_precision,
+            shuffle_mode=shuffle_mode,
+        )
+        if example_shuffle not in ("global", "local"):
+            raise ValueError("example_shuffle must be 'global' or 'local'")
+        if example_shuffle == "local" and mesh is None:
+            raise ValueError("example_shuffle='local' requires a mesh")
+
+        self.loss = loss
+        self.learning_schedule = learning_schedule
+        self.no_components = no_components
+        self.learning_rate = learning_rate
+        self.k = int(k)
+        self.n = int(n)
+        self.rho = rho
+        self.epsilon = epsilon
+        self.max_sampled = max_sampled
+        self.item_alpha = item_alpha
+        self.user_alpha = user_alpha
+        self.batch_size = batch_size
+        self.fast_path = fast_path
+        self.pool_kernels = pool_kernels
+        self.user_pallas = user_pallas
+        self.fast_precision = fast_precision
+        self.shuffle_mode = shuffle_mode
+        # Multi-device execution is not ported yet; kept so params and
+        # checkpoints interchange with the JAX package.
+        self.mesh = mesh
+        self.table_partition = table_partition
+        self.shard_examples = shard_examples
+        self.example_shuffle = example_shuffle
+
+        if random_state is None:
+            self.random_state = np.random.RandomState()
+        elif isinstance(random_state, np.random.RandomState):
+            self.random_state = random_state
+        else:
+            self.random_state = np.random.RandomState(random_state)
+
+        self._device = resolve_device(device)
+        self._reset_state()
+
+    @property
+    def device(self) -> str:
+        return str(self._device)
+
+    @device.setter
+    def device(self, value):
+        self._sync_mirrors()
+        self._device = resolve_device(value)
+        if self._state is not None:
+            self._state = ModelState(*(x.to(self._device) for x in self._state))
+        self._drop_mirrors()
+        self._serving_cache = {}
+
+    # ------------------------------------------------------------------
+    # State plumbing
+    # ------------------------------------------------------------------
+
+    def _reset_state(self):
+        self._state: ModelState | None = None
+        # recommend()'s catalog / compressed index and the identity-keyed
+        # host prep of the input matrices.
+        self._serving_cache: dict = {}
+        # Writable host mirrors of the fused state tables, handed out (as
+        # views) by the state-attribute getters so user code can edit them
+        # in place like the reference's numpy attributes; `_mirror_snaps`
+        # holds pristine copies used to detect edits (`_sync_mirrors`).
+        self._host_mirrors: dict = {}
+        self._mirror_snaps: dict = {}
+
+    def fit(self, interactions, *args, **kwargs):
+        """Training is not ported yet (ROADMAP.md, slice 2)."""
+        raise NotImplementedError(
+            "lightfm_tpu_torch serves models but does not train them yet; "
+            "see ROADMAP.md (slice 2). Train with lightfm_tpu and load the "
+            "checkpoint with lightfm_tpu_torch.load_model."
+        )
+
+    def fit_partial(self, interactions, *args, **kwargs):
+        """Training is not ported yet (ROADMAP.md, slice 2)."""
+        return self.fit(interactions, *args, **kwargs)
+
+    def _check_initialized(self):
+        if self._state is None:
+            raise ValueError(
+                "You must fit the model before trying to obtain predictions."
+            )
+        self._sync_mirrors()
+
+    def _mirror(self, attr):
+        m = self._host_mirrors.get(attr)
+        if m is None:
+            m = getattr(self._state, attr).detach().cpu().numpy().copy()
+            self._host_mirrors[attr] = m
+            self._mirror_snaps[attr] = m.copy()
+        return m
+
+    def _drop_mirrors(self):
+        self._host_mirrors = {}
+        self._mirror_snaps = {}
+
+    def _sync_mirrors(self):
+        """Push in-place edits of handed-out state views back to the device
+        (bytewise snapshot compare, at every state-consuming call)."""
+        mirrors = getattr(self, "_host_mirrors", None)
+        if not mirrors or self._state is None:
+            return
+        for attr, m in mirrors.items():
+            if np.array_equal(m, self._mirror_snaps[attr]):
+                continue
+            self._state = self._state._replace(
+                **{attr: torch.tensor(m, device=self._device)}
+            )
+            self._mirror_snaps[attr] = m.copy()
+            self._drop_state_dependent_cache()  # representations changed
+
+    def _drop_state_dependent_cache(self):
+        """Drop serving-cache entries derived from MODEL STATE (catalog,
+        compressed index), keeping the identity-keyed host prep."""
+        self._serving_cache = {
+            k: v
+            for k, v in self._serving_cache.items()
+            if not (isinstance(k, tuple) and k and k[0] in ("index", "catalog"))
+        }
+
+    def _get_field(self, name):
+        if self._state is None:
+            return None
+        attr, kind = _FIELD_MAP[name]
+        arr = self._mirror(attr)
+        # Layout: [emb cols 0..D-1 | zero pad | bias col W-1].
+        return arr[:, : self.no_components] if kind == "emb" else arr[:, -1]
+
+    def _set_field(self, name, value):
+        if value is None:
+            return
+        if self._state is None:
+            raise ValueError("Cannot set model state before the model is fitted.")
+        # Fold pending in-place edits first so assignment to one field does
+        # not discard edits made through another field's view.
+        self._sync_mirrors()
+        attr, kind = _FIELD_MAP[name]
+        table = getattr(self._state, attr).clone()
+        value = torch.tensor(np.asarray(value, dtype=np.float32), device=self._device)
+        if kind == "emb":
+            table[:, : self.no_components] = value
+        else:
+            table[:, -1] = value
+        self._state = self._state._replace(**{attr: table})
+        self._host_mirrors.pop(attr, None)
+        self._mirror_snaps.pop(attr, None)
+        self._serving_cache = {}
+
+    # ------------------------------------------------------------------
+    # Input coercion / validation (mirrors lightfm.py:314-472)
+    # ------------------------------------------------------------------
+
+    def _construct_feature_matrices(self, n_users, n_items, user_features, item_features):
+        if user_features is None:
+            user_features = sp.identity(n_users, dtype=CYTHON_DTYPE, format="csr")
+        else:
+            user_features = user_features.tocsr()
+
+        if item_features is None:
+            item_features = sp.identity(n_items, dtype=CYTHON_DTYPE, format="csr")
+        else:
+            item_features = item_features.tocsr()
+
+        if n_users > user_features.shape[0]:
+            raise Exception(
+                "Number of user feature rows does not equal the number of users"
+            )
+        if n_items > item_features.shape[0]:
+            raise Exception(
+                "Number of item feature rows does not equal the number of items"
+            )
+
+        if self._state is not None:
+            if not self._state.user_table.shape[0] >= user_features.shape[1]:
+                raise ValueError(
+                    "The user feature matrix specifies more "
+                    "features than there are estimated "
+                    "feature embeddings: {} vs {}.".format(
+                        self._state.user_table.shape[0], user_features.shape[1]
+                    )
+                )
+            if not self._state.item_table.shape[0] >= item_features.shape[1]:
+                raise ValueError(
+                    "The item feature matrix specifies more "
+                    "features than there are estimated "
+                    "feature embeddings: {} vs {}.".format(
+                        self._state.item_table.shape[0], item_features.shape[1]
+                    )
+                )
+
+        if user_features.dtype != CYTHON_DTYPE:
+            user_features = user_features.astype(CYTHON_DTYPE)
+        if item_features.dtype != CYTHON_DTYPE:
+            item_features = item_features.astype(CYTHON_DTYPE)
+
+        return user_features, item_features
+
+    @staticmethod
+    def _is_identity(csr) -> bool:
+        n, m = csr.shape
+        if n != m or csr.nnz != n:
+            return False
+        return (
+            np.array_equal(csr.indptr, np.arange(n + 1))
+            and np.array_equal(csr.indices, np.arange(n))
+            and np.all(csr.data == 1.0)
+        )
+
+    def _pad_features(self, csr):
+        if self._is_identity(csr):
+            return identity_rows(csr.shape[0])
+        # The width cap bounds padding on skewed data: when the heaviest
+        # row is far wider than the 99th percentile, its tail spills into
+        # ChunkedRows overflow chunks (exact either way).
+        lengths = np.diff(sp.csr_matrix(csr).indptr)
+        if len(lengths):
+            p99 = int(np.percentile(lengths, 99))
+            cap = max(8 * ((p99 + 7) // 8), 8)
+            if int(lengths.max()) > max(4 * cap, 64):
+                return pad_csr(csr, pad_multiple=8, width_cap=cap, device=self._device)
+        return pad_csr(csr, pad_multiple=8, device=self._device)
+
+    def _memo_by_identity(self, kind: str, obj, build):
+        """Memoize ``build(obj)`` in the serving cache keyed by ``obj``'s
+        identity (weakref-guarded against id reuse) plus a content checksum
+        (in-place mutation misses instead of returning stale results), so
+        the per-epoch metric loop skips host padding and staging."""
+        key = (kind, id(obj), content_fingerprint(obj))
+        hit = self._serving_cache.get(key)
+        if hit is not None:
+            ref, val = hit
+            if ref() is obj:
+                return val
+        val = build(obj)
+        if val is obj:
+            # Nothing to memoize; caching would make the entry immortal.
+            return val
+        try:
+            entry = (weakref.ref(obj), val)
+        except TypeError:  # non-weakref-able input; skip caching
+            return val
+        # Evict same-identity entries with a stale checksum, then entries
+        # whose input is gone.
+        for k, v in list(self._serving_cache.items()):
+            stale_same = (
+                isinstance(k, tuple) and len(k) == 3
+                and k[:2] == key[:2] and k != key
+            )
+            dead = (
+                isinstance(v, tuple)
+                and v
+                and isinstance(v[0], weakref.ref)
+                and v[0]() is None
+            )
+            if stale_same or dead:
+                del self._serving_cache[k]
+        self._serving_cache[key] = entry
+        # Hard cap for callers that stream fresh live matrices.
+        live = [
+            k
+            for k, v in self._serving_cache.items()
+            if isinstance(v, tuple) and v and isinstance(v[0], weakref.ref)
+        ]
+        for k in live[: max(0, len(live) - 64)]:
+            del self._serving_cache[k]
+        return val
+
+    def _pad_features_cached(self, csr):
+        if self._is_identity(csr):
+            # Identity matrices are rebuilt each call; key by shape.
+            return self._serving_cache.setdefault(
+                ("pad_feats_id", csr.shape[0]), identity_rows(csr.shape[0])
+            )
+        return self._memo_by_identity("pad_feats", csr, self._pad_features)
+
+    # ------------------------------------------------------------------
+    # Prediction
+    # ------------------------------------------------------------------
+
+    def predict(
+        self, user_ids, item_ids, item_features=None, user_features=None, num_threads=1
+    ):
+        """Compute the recommendation score for user-item pairs."""
+        self._check_initialized()
+
+        if isinstance(user_ids, int) or (
+            isinstance(user_ids, np.integer) and np.ndim(user_ids) == 0
+        ):
+            user_ids = np.repeat(np.int32(user_ids), len(item_ids))
+        if isinstance(user_ids, (list, tuple)):
+            user_ids = np.array(user_ids, dtype=np.int32)
+        if isinstance(item_ids, (list, tuple)):
+            item_ids = np.array(item_ids, dtype=np.int32)
+
+        if len(user_ids) != len(item_ids):
+            raise ValueError(
+                f"Expected the number of user IDs ({len(user_ids)}) to equal the number"
+                f" of item IDs ({len(item_ids)})"
+            )
+
+        user_ids = np.asarray(user_ids, dtype=np.int32)
+        item_ids = np.asarray(item_ids, dtype=np.int32)
+
+        if num_threads < 1:
+            raise ValueError("Number of threads must be 1 or larger.")
+
+        if len(user_ids) and (user_ids.min() < 0 or item_ids.min() < 0):
+            raise ValueError(
+                "User or item ids cannot be negative. "
+                "Check your inputs for negative numbers "
+                "or very large numbers that can overflow."
+            )
+
+        n_users = user_ids.max() + 1
+        n_items = item_ids.max() + 1
+
+        (user_features, item_features) = self._construct_feature_matrices(
+            n_users, n_items, user_features, item_features
+        )
+
+        scores = _predict_pairs(
+            self._state,
+            self._pad_features_cached(user_features),
+            self._pad_features_cached(item_features),
+            torch.from_numpy(user_ids).to(self._device),
+            torch.from_numpy(item_ids).to(self._device),
+        )
+        return scores.cpu().numpy().astype(np.float32, copy=False)
+
+    def _check_test_train_intersections(self, test_mat, train_mat):
+        if train_mat is not None:
+            n_intersections = test_mat.multiply(train_mat).nnz
+            if n_intersections:
+                raise ValueError(
+                    "Test interactions matrix and train interactions "
+                    "matrix share %d interactions. This will cause "
+                    "incorrect evaluation, check your data split." % n_intersections
+                )
+
+    def predict_rank(
+        self,
+        test_interactions,
+        train_interactions=None,
+        item_features=None,
+        user_features=None,
+        num_threads=1,
+        check_intersections=True,
+    ):
+        """Rank of every non-zero test interaction among all items.
+
+        Returns a scipy CSR with the same sparsity as ``test_interactions``
+        whose data holds 0-based ranks, excluding train positives -- the
+        reference ``predict_rank`` (`lightfm/lightfm.py:884-989`) with its
+        pessimistic ``>=`` ties (template:1318).  On a CUDA device the
+        counting runs in the hand-written kernels of ``ops.rank_counts``.
+        """
+        self._check_initialized()
+
+        if num_threads < 1:
+            raise ValueError("Number of threads must be 1 or larger.")
+
+        if check_intersections:
+            self._check_test_train_intersections(test_interactions, train_interactions)
+
+        n_users, n_items = test_interactions.shape
+
+        (user_features, item_features) = self._construct_feature_matrices(
+            n_users, n_items, user_features, item_features
+        )
+
+        if not item_features.shape[1] == self._state.item_table.shape[0]:
+            raise ValueError("Incorrect number of features in item_features")
+        if not user_features.shape[1] == self._state.user_table.shape[0]:
+            raise ValueError("Incorrect number of features in user_features")
+
+        # Identity-keyed memoization keeps the converted CSRs stable across
+        # the per-epoch metric loop, so the tier prep hits its cache too.
+        test_interactions = self._memo_by_identity(
+            "test_csr",
+            test_interactions,
+            lambda m: m.tocsr().astype(CYTHON_DTYPE, copy=False),
+        )
+        if train_interactions is None:
+            train_interactions = self._serving_cache.setdefault(
+                ("empty_train", n_users, n_items),
+                sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE),
+            )
+        else:
+            train_interactions = self._memo_by_identity(
+                "train_csr", train_interactions, lambda m: m.tocsr()
+            )
+
+        ranks_data = predict_ranks_padded(
+            self._state,
+            self._pad_features_cached(user_features),
+            self._pad_features_cached(item_features),
+            test_interactions,
+            train_interactions,
+            cache=self._serving_cache,
+        )
+
+        return sp.csr_matrix(
+            (ranks_data, test_interactions.indices, test_interactions.indptr),
+            shape=test_interactions.shape,
+        )
+
+    def recommend(
+        self,
+        user_ids,
+        k=10,
+        item_features=None,
+        user_features=None,
+        train_interactions=None,
+        n_items=None,
+        mode="auto",
+        rerank_mult=4,
+    ):
+        """Top-k item recommendations for a batch of users.
+
+        - ``"exact"``: IEEE fp32 catalog scoring + ``torch.topk``;
+        - ``"approx"`` and ``"auto"`` (default): accepted for parity with
+          the JAX package and served by the same exact top-k (PyTorch has
+          no counterpart of the TPU's approximate top-k, so recall is 1.0);
+        - ``"compressed"``: int8-quantized coarse scoring + exact fp32
+          rerank of ``rerank_mult * k`` candidates.
+
+        ``train_interactions`` (any scipy sparse) excludes known positives.
+        Returns ``(scores [B, k], item_ids [B, k])`` numpy arrays.
+        """
+        self._check_initialized()
+        from lightfm_tpu_torch import retrieval
+
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "recommend() over a device mesh is not ported yet (ROADMAP.md)"
+            )
+        user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
+        if n_items is None:
+            if item_features is not None:
+                n_items = item_features.shape[0]
+            elif train_interactions is not None:
+                n_items = train_interactions.shape[1]
+            elif getattr(self, "n_items_", None) is not None:
+                n_items = self.n_items_
+            else:
+                n_items = self._state.item_table.shape[0]
+        if item_features is None and getattr(self, "_item_features_used", False):
+            raise ValueError(
+                "This model was fitted with item_features; recommend() needs "
+                "the same item_features to build catalog representations."
+            )
+        if user_features is None and getattr(self, "_user_features_used", False):
+            raise ValueError(
+                "This model was fitted with user_features; recommend() needs "
+                "the same user_features to build user representations."
+            )
+        n_users = int(user_ids.max()) + 1 if len(user_ids) else 1
+
+        (user_features, item_features) = self._construct_feature_matrices(
+            n_users, n_items, user_features, item_features
+        )
+        user_feats = self._pad_features_cached(user_features)
+        item_feats = self._pad_features_cached(item_features)
+
+        exclude_idx = None
+        if train_interactions is not None:
+            tr = train_interactions.tocsr()
+            sel_lengths = np.diff(tr.indptr)[user_ids]
+            P = max(1, int(sel_lengths.max()) if len(sel_lengths) else 1)
+            # Sentinel > any padded catalog width, so masking skips it.
+            exclude = np.full((len(user_ids), P), np.iinfo(np.int32).max, np.int32)
+            nnz_sel = int(sel_lengths.sum())
+            if nnz_sel:
+                row_of = np.repeat(np.arange(len(user_ids)), sel_lengths)
+                pos = np.arange(nnz_sel) - np.repeat(
+                    np.cumsum(sel_lengths) - sel_lengths, sel_lengths
+                )
+                flat = np.repeat(tr.indptr[user_ids], sel_lengths) + pos
+                exclude[row_of, pos] = tr.indices[flat]
+            exclude_idx = torch.from_numpy(exclude).to(self._device)
+
+        uid = torch.from_numpy(user_ids).to(self._device)
+        k = min(int(k), int(n_items))  # never return catalog padding
+        # Catalog structures are cached for the identity-features case
+        # (invalidated whenever model state changes).
+        cacheable = item_features is None or self._is_identity(item_features)
+        if mode == "compressed":
+            index = self._serving_cache.get(("index", n_items)) if cacheable else None
+            if index is None:
+                index = retrieval.build_compressed_index(self._state, item_feats, n_items)
+                if cacheable:
+                    self._serving_cache[("index", n_items)] = index
+            scores, ids = retrieval.top_k_compressed(
+                self._state, user_feats, index, uid, k,
+                exclude_idx=exclude_idx, rerank_mult=rerank_mult,
+            )
+        elif mode in ("auto", "exact", "approx"):
+            catalog = self._serving_cache.get(("catalog", n_items)) if cacheable else None
+            if catalog is None and cacheable:
+                # Streaming-size catalogs are padded to the tile multiple.
+                multiple = (
+                    131_072 if n_items > retrieval.STREAMING_CATALOG_LIMIT else 128
+                )
+                catalog = retrieval.build_catalog(
+                    self._state, item_feats, n_items, multiple=multiple
+                )
+                self._serving_cache[("catalog", n_items)] = catalog
+            scores, ids = retrieval.top_k(
+                self._state, user_feats, item_feats, uid, k, n_items,
+                exclude_idx=exclude_idx, catalog=catalog,
+            )
+        else:
+            raise ValueError(f"Unknown retrieval mode: {mode!r}")
+        return scores.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # Representations / params (lightfm.py:991-1107)
+    # ------------------------------------------------------------------
+
+    def get_item_representations(self, features=None):
+        self._check_initialized()
+        if features is None:
+            return self.item_biases, self.item_embeddings
+        features = sp.csr_matrix(features, dtype=CYTHON_DTYPE)
+        return features * self.item_biases, features * self.item_embeddings
+
+    def get_user_representations(self, features=None):
+        self._check_initialized()
+        if features is None:
+            return self.user_biases, self.user_embeddings
+        features = sp.csr_matrix(features, dtype=CYTHON_DTYPE)
+        return features * self.user_biases, features * self.user_embeddings
+
+    def get_params(self, deep=True):
+        return {
+            "loss": self.loss,
+            "learning_schedule": self.learning_schedule,
+            "no_components": self.no_components,
+            "learning_rate": self.learning_rate,
+            "k": self.k,
+            "n": self.n,
+            "rho": self.rho,
+            "epsilon": self.epsilon,
+            "max_sampled": self.max_sampled,
+            "item_alpha": self.item_alpha,
+            "user_alpha": self.user_alpha,
+            "random_state": self.random_state,
+            "batch_size": self.batch_size,
+            "mesh": self.mesh,
+            "table_partition": self.table_partition,
+            "shard_examples": self.shard_examples,
+            "example_shuffle": self.example_shuffle,
+            "fast_path": self.fast_path,
+            "pool_kernels": self.pool_kernels,
+            "user_pallas": self.user_pallas,
+            "fast_precision": self.fast_precision,
+            "shuffle_mode": self.shuffle_mode,
+            "device": self.device,
+        }
+
+    def __sklearn_tags__(self):
+        # sklearn >= 1.6 estimator-tags protocol; enables clone()/CV search.
+        from sklearn.base import BaseEstimator
+
+        tags = BaseEstimator.__sklearn_tags__(self)
+        tags.input_tags.sparse = True
+        tags.requires_fit = True
+        return tags
+
+    def set_params(self, **params):
+        valid_params = self.get_params()
+        for key, value in params.items():
+            if key not in valid_params:
+                raise ValueError(
+                    "Invalid parameter %s for estimator %s. "
+                    "Check the list of available parameters "
+                    "with `estimator.get_params().keys()`."
+                    % (key, self.__class__.__name__)
+                )
+            setattr(self, key, value)
+        return self
+
+    # ------------------------------------------------------------------
+    # Pickling: store numpy arrays, not device tensors.
+    # ------------------------------------------------------------------
+
+    def __getstate__(self):
+        self._sync_mirrors()  # pickle what the user sees, edits included
+        d = dict(self.__dict__)
+        d.pop("_host_mirrors", None)
+        d.pop("_mirror_snaps", None)
+        d.pop("mesh", None)  # device handles are not picklable
+        d.pop("_serving_cache", None)  # rebuildable device buffers
+        d["_device"] = str(self._device)
+        state = d.pop("_state")
+        d["_state_np"] = (
+            None if state is None
+            else {name: x.cpu().numpy() for name, x in zip(ModelState._fields, state)}
+        )
+        return d
+
+    def __setstate__(self, d):
+        state_np = d.pop("_state_np", None)
+        self.__dict__.update(d)
+        self.mesh = None
+        self._device = resolve_device(d["_device"])
+        self._serving_cache = {}
+        self._drop_mirrors()
+        self._state = None
+        if state_np is not None:
+            missing = [n for n in ModelState._fields if n not in state_np]
+            if missing:
+                raise ValueError(
+                    f"Pickled model state is missing fields {missing}; it may "
+                    "come from an incompatible version."
+                )
+            self._state = ModelState(
+                **{k: torch.tensor(state_np[k], device=self._device) for k in ModelState._fields}
+            )
+
+
+def _make_state_property(name):
+    def getter(self):
+        return self._get_field(name)
+
+    def setter(self, value):
+        self._set_field(name, value)
+
+    return property(getter, setter)
+
+
+for _f in _FIELD_MAP:
+    setattr(LightFM, _f, _make_state_property(_f))

@@ -1,0 +1,255 @@
+"""lightfm_tpu_torch.LightFM's serving surface vs lightfm_tpu.LightFM, on the CPU.
+
+A small model is fitted once with the JAX package and saved; the port
+loads the checkpoint (and, separately, takes the same state through
+``interop``) and must serve the same predictions, ranks, metrics and
+recommendations.
+"""
+
+import pickle
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+import lightfm_tpu
+from lightfm_tpu import evaluation as jax_eval
+from lightfm_tpu.state import ModelState as JaxModelState
+
+import lightfm_tpu_torch
+from lightfm_tpu_torch import evaluation as torch_eval
+from lightfm_tpu_torch import interop
+from lightfm_tpu_torch.ops import rank_counts as rc
+
+N_USERS, N_ITEMS = 60, 80
+
+
+def _planted(seed=7):
+    rng = np.random.RandomState(seed)
+    top = np.argsort(-(rng.randn(N_USERS, 4) @ rng.randn(N_ITEMS, 4).T), axis=1)
+    rows = np.repeat(np.arange(N_USERS), 16)
+    cols = top[:, :16].ravel()
+    inter = sp.csr_matrix(
+        (np.ones(len(rows), np.float32), (rows, cols)), shape=(N_USERS, N_ITEMS)
+    )
+    mask = rng.rand(inter.nnz) < 0.25
+    coo = inter.tocoo()
+    train = sp.csr_matrix(
+        (coo.data[~mask], (coo.row[~mask], coo.col[~mask])), shape=inter.shape
+    )
+    test = sp.csr_matrix(
+        (coo.data[mask], (coo.row[mask], coo.col[mask])), shape=inter.shape
+    )
+    return train, test
+
+
+TRAIN, TEST = _planted()
+
+
+@pytest.fixture(scope="module")
+def models(tmp_path_factory):
+    jm = lightfm_tpu.LightFM(loss="warp", no_components=6, random_state=3)
+    jm.fit(TRAIN, epochs=5)
+    path = str(tmp_path_factory.mktemp("ckpt") / "jax_model.npz")
+    lightfm_tpu.save_model(jm, path)
+    tm = lightfm_tpu_torch.load_model(path, device="cpu")
+    return jm, tm
+
+
+def test_checkpoint_and_interop_carry_the_same_state(models):
+    jm, tm = models
+    assert tm.device == "cpu"
+    want = {n: np.asarray(x) for n, x in zip(JaxModelState._fields, jm._state)}
+    got = interop.state_to_numpy(tm._state)
+    for name in JaxModelState._fields:
+        assert np.array_equal(got[name], want[name]), name
+    carried = interop.state_from_numpy(want, "cpu")
+    for name in JaxModelState._fields:
+        assert np.array_equal(getattr(carried, name).numpy(), want[name]), name
+    assert tm.n_items_ == N_ITEMS and tm.n_users_ == N_USERS
+    assert tm.get_params().keys() == set(jm.get_params()) | {"device"}
+
+
+def test_predict_matches_jax(models):
+    jm, tm = models
+    rng = np.random.RandomState(0)
+    u = rng.randint(0, N_USERS, 500).astype(np.int32)
+    i = rng.randint(0, N_ITEMS, 500).astype(np.int32)
+    got = tm.predict(u, i)
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, jm.predict(u, i), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tm.predict(3, np.arange(5)), jm.predict(3, np.arange(5)),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _close_ranks(got, want):
+    assert np.array_equal(got.indptr, want.indptr)
+    assert np.array_equal(got.indices, want.indices)
+    assert np.abs(got.data - want.data).max() <= 1
+    assert (got.data == want.data).mean() >= 0.99
+
+
+@pytest.mark.parametrize("with_train", [False, True])
+def test_predict_rank_matches_jax(models, with_train):
+    jm, tm = models
+    train = TRAIN if with_train else None
+    rc.reset_launches()
+    got = tm.predict_rank(TEST, train_interactions=train)
+    _close_ranks(got, jm.predict_rank(TEST, train_interactions=train))
+    assert rc.launches == {"rank_counts": 0, "pair_scores": 0}  # CPU: plain versions
+
+
+def _metrics(mod, model, test, train):
+    return {
+        "precision": mod.precision_at_k(model, test, train_interactions=train, k=5),
+        "recall": mod.recall_at_k(model, test, train_interactions=train, k=5),
+        "auc": mod.auc_score(model, test, train_interactions=train),
+        "rr": mod.reciprocal_rank(model, test, train_interactions=train),
+    }
+
+
+def test_metrics_match_jax(models):
+    jm, tm = models
+    got = _metrics(torch_eval, tm, TEST, TRAIN)
+    want = _metrics(jax_eval, jm, TEST, TRAIN)
+    for name in got:
+        np.testing.assert_allclose(got[name], want[name], atol=1e-3, err_msg=name)
+    assert got["auc"].mean() > 0.55  # better than chance after a short fit
+
+
+def test_metrics_when_train_and_test_cover_the_catalog(models):
+    # evaluation.py:110-146: user 0's train + test positives are the whole
+    # catalog, so it has no negatives; the port copies the JAX package's
+    # result for it (NaN AUC) along with everyone else's.
+    jm, tm = models
+    train = TRAIN.tolil()
+    test = TEST.tolil()
+    test[0, :] = 0
+    train[0, :] = 0
+    train[0, : N_ITEMS // 2] = 1
+    test[0, N_ITEMS // 2 :] = 1
+    train, test = train.tocsr(), test.tocsr()
+    train.eliminate_zeros()
+    test.eliminate_zeros()
+    got = _metrics(torch_eval, tm, test, train)
+    want = _metrics(jax_eval, jm, test, train)
+    for name in got:
+        np.testing.assert_allclose(got[name], want[name], atol=1e-3, err_msg=name)
+    auc0 = torch_eval.auc_score(tm, test, train_interactions=train, preserve_rows=True)[0]
+    np.testing.assert_equal(
+        auc0, jax_eval.auc_score(jm, test, train_interactions=train, preserve_rows=True)[0]
+    )
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx", "compressed"])
+def test_recommend_matches_jax(models, mode):
+    jm, tm = models
+    users = np.arange(20)
+    got_s, got_i = tm.recommend(users, k=10, mode=mode, train_interactions=TRAIN)
+    want_s, want_i = jm.recommend(users, k=10, mode=mode, train_interactions=TRAIN)
+    assert got_i.dtype == np.int32 and got_i.shape == (20, 10)
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-6, atol=1e-6)
+    # Ids agree wherever the scores are distinct.
+    distinct = np.ones_like(got_s, dtype=bool)
+    gaps = np.abs(np.diff(want_s, axis=1)) > 1e-5
+    distinct[:, :-1] &= gaps
+    distinct[:, 1:] &= gaps
+    assert np.array_equal(got_i[distinct], want_i[distinct])
+    for r, u in enumerate(users):
+        excluded = set(TRAIN.indices[TRAIN.indptr[u] : TRAIN.indptr[u + 1]])
+        assert not excluded.intersection(got_i[r].tolist())
+    np.testing.assert_allclose(
+        got_s, tm.predict(np.repeat(users, 10), got_i.ravel()).reshape(got_s.shape),
+        rtol=1e-5, atol=1e-6,
+    )
+
+
+def test_recommend_streaming_matches_dense(models, monkeypatch):
+    from lightfm_tpu_torch import retrieval
+
+    jm, tm = models
+    dense_s, dense_i = tm.recommend(np.arange(8), k=10, mode="exact")
+    monkeypatch.setattr(retrieval, "STREAMING_CATALOG_LIMIT", 16)
+    tm._drop_state_dependent_cache()
+    s, i = tm.recommend(np.arange(8), k=10, mode="exact", train_interactions=None)
+    tm._drop_state_dependent_cache()
+    np.testing.assert_allclose(np.sort(s, 1), np.sort(dense_s, 1), rtol=1e-6, atol=1e-6)
+    assert i.max() < N_ITEMS
+
+
+def test_recommend_rejects_a_mesh():
+    m = lightfm_tpu_torch.LightFM(device="cpu", mesh=object())
+    m._state = interop.state_from_numpy(
+        {n: np.zeros((4, 8) if "scale" not in n else (), np.float32)
+         for n in JaxModelState._fields}, "cpu",
+    )
+    with pytest.raises(NotImplementedError):
+        m.recommend([0], k=2)
+
+
+def test_state_views_sync_inplace_edits(models):
+    _, loaded = models
+    tm = pickle.loads(pickle.dumps(loaded))
+    names = [
+        f"{side}_{what}" for side in ("item", "user")
+        for what in ("embeddings", "biases", "embedding_gradients", "bias_gradients",
+                     "embedding_momentum", "bias_momentum")
+    ]
+    for name in names:
+        view = getattr(tm, name)
+        assert view.shape[0] == (N_ITEMS if name.startswith("item") else N_USERS)
+        assert view.shape[1:] == ((6,) if "embedding" in name else ())
+    tm.item_embeddings[:] = 0
+    tm.user_embeddings[:] = 0
+    tm.item_biases[:] = 0
+    tm.user_biases[:] = 0
+    full = sp.csr_matrix(
+        (np.ones(N_ITEMS, np.float32), (np.zeros(N_ITEMS, int), np.arange(N_ITEMS))),
+        shape=(N_USERS, N_ITEMS),
+    )
+    # A zeroed model ties every item: pessimistic maximal rank.
+    assert (tm.predict_rank(full).data == N_ITEMS - 1).all()
+    assert (tm.predict(np.arange(4), np.arange(4)) == 0).all()
+    # Assignment folds pending view edits of another field first.
+    tm.item_embeddings[:] = 3.0
+    tm.user_biases = np.ones(N_USERS, np.float32)
+    assert (tm.item_embeddings == 3.0).all() and (tm.user_biases == 1.0).all()
+    assert (tm._state.item_table[:, :6] == 3.0).all()
+
+
+def test_params_and_pickle_roundtrip(models):
+    _, tm = models
+    params = tm.get_params()
+    assert params["device"] == "cpu" and params["no_components"] == 6
+    clone = lightfm_tpu_torch.LightFM(**params)
+    assert clone.get_params()["loss"] == "warp"
+    clone.set_params(learning_rate=0.1)
+    assert clone.learning_rate == 0.1
+    with pytest.raises(ValueError):
+        clone.set_params(not_a_param=1)
+    again = pickle.loads(pickle.dumps(tm))
+    assert again.device == "cpu"
+    u = np.arange(10)
+    assert np.array_equal(again.predict(u, u), tm.predict(u, u))
+    b, e = again.get_item_representations()
+    assert e.shape == (N_ITEMS, 6) and b.shape == (N_ITEMS,)
+
+
+def test_port_checkpoint_loads_in_jax(models, tmp_path):
+    jm, tm = models
+    path = str(tmp_path / "port_model.npz")
+    lightfm_tpu_torch.save_model(tm, path)
+    back = lightfm_tpu.load_model(path)
+    u = np.arange(N_USERS)
+    np.testing.assert_array_equal(back.predict(u, u % N_ITEMS), jm.predict(u, u % N_ITEMS))
+    assert back.n_items_ == N_ITEMS
+
+
+def test_fit_is_not_ported_yet():
+    m = lightfm_tpu_torch.LightFM(device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.fit(TRAIN)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.fit_partial(TRAIN)
+    with pytest.raises(ValueError, match="fit the model"):
+        m.predict([0], [0])
