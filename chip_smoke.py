@@ -1,15 +1,23 @@
-"""Smoke run of lightfm_tpu_torch's serving path on one NVIDIA GPU.
+"""Smoke run of lightfm_tpu_torch's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
 Builds the CUDA kernels from ``lightfm_tpu_torch/csrc`` (into the ignored
-``lightfm_tpu_torch/_build``), holds each kernel against its plain PyTorch
-version at the serving shape of ``benchmarks/bench_serving.py`` (50,000
-users x 100,000 items, D=64, T=10), then drives ``LightFM.predict_rank``
-with the four metrics, ``recommend`` and ``predict`` at that width with
-random weights made from ``--seed``, and checks what comes out.  Any failed
-check raises, so the exit code is non-zero; the last stdout line is the
-device record, the line before it the per-kernel record.
+``lightfm_tpu_torch/_build``), holds each rank kernel against its plain
+PyTorch version at the serving shape of ``benchmarks/bench_serving.py``
+(50,000 users x 100,000 items, D=64, T=10), then drives
+``LightFM.predict_rank`` with the four metrics, ``recommend`` and
+``predict`` at that width with random weights made from ``--seed``, and
+checks what comes out.  Then it holds the adagrad update kernel (K1, and
+K4 over it) against its plain version at the training step's shape, and
+trains with ``LightFM.fit`` at the ``synth-5m-warp-d64`` shape of
+``benchmarks/bench_training.py`` (200,000 users x 100,000 items, 5M
+interactions, D=64, batch 131,072): 15 WARP epochs with a train-sample AUC
+guard, a same-seed determinism check, one epoch each of BPR, logistic and
+``user_pallas=False``, per-epoch CUDA-event times and one step broken into
+spans.  Any failed check raises, so the exit code is non-zero; the last
+stdout line is the device record, the line before it the per-kernel
+record.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -17,6 +25,7 @@ Needs a CUDA device: without one it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -27,6 +36,15 @@ import scipy.sparse as sp
 
 N_USERS, N_ITEMS, D, T_TEST, N_TRAIN = 50_000, 100_000, 64, 10, 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+
+# Training shape: `synth-5m-warp-d64` (benchmarks/bench_training.py:84-87,
+# bench.py:348) -- 200k users x 100k items, 5M clustered interactions,
+# D=64 (W=72), batch 131,072, WARP K=10 over a pool of 16,384.
+TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, TRAIN_BATCH = 200_000, 100_000, 5_000_000, 131_072
+TRAIN_EPOCHS = 15  # the JAX package's accuracy-guard epoch count (bench.py)
+AUC_FLOOR = 0.97  # train-sample AUC over 2,048 users (JAX package: 0.9924)
+LR = 0.05  # LightFM's default learning rate
+DEVICE = "cuda"  # phase 4's tensors; a CPU rehearsal points it at "cpu"
 
 
 def log(*parts):
@@ -427,6 +445,408 @@ def serving_path(torch, seed: int) -> dict:
     return main
 
 
+def zipf_touches(rng, M: int, R: int, W: int):
+    """M sorted touches of an R-row table: Zipf row popularity (the hottest
+    rows get thousands of touches), 1% touches at rows >= R with NONZERO
+    gradients (they must be ignored), every 17th gradient zero."""
+    rows = rng.permutation(R)[(rng.zipf(1.1, M) - 1) % R]
+    n_sent = M // 100
+    rows[:n_sent] = R + rng.randint(0, 2**30 - R, n_sent)
+    rows[0] = R  # the smallest out-of-range row
+    wg = (0.1 * rng.randn(M, W)).astype(np.float32)
+    wg[::17] = 0.0
+    return np.sort(rows).astype(np.int32), wg
+
+
+def update_tolerance(torch, table, acc, sidx, wg):
+    """Per-element bound on |kernel - plain|: each side sums a row's n_r
+    touches in fp32 in its own order, so each is within (n_r + 2) * 2^-23 *
+    (sum of |terms| + |start value|) of the exact result (recursive-
+    summation worst case plus the final multiply and add); twice that
+    bounds their difference."""
+    R, W = table.shape
+    keep = sidx < R
+    rows = sidx[keep].long()
+    g = wg[keep].double()
+    n = torch.zeros(R, dtype=torch.float64, device=table.device)
+    n.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
+    abs_sum = torch.zeros((R, W), dtype=torch.float64, device=table.device)
+    abs_sum.index_add_(0, rows, g.abs())
+    sq_sum = torch.zeros_like(abs_sum).index_add_(0, rows, g * g)
+    scale = 2 * (n[:, None] + 2) * 2.0**-23
+    t_tol = scale * (table.double().abs() + LR * torch.rsqrt(acc.double()) * abs_sum)
+    a_tol = scale * (acc.double() + sq_sum)
+    return t_tol, a_tol
+
+
+def update_kernel_checks(torch, seed: int) -> float:
+    """Phase 4: K1 against its plain version at the training step's shape
+    (M = 131,072 touches, W = 72, the item and the user table) on skewed
+    touches, at both precisions; K4 once.  Returns the largest difference
+    seen."""
+    from lightfm_tpu_torch.ops import adagrad_update as au
+    from lightfm_tpu_torch.state import table_width
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 3)
+    M, W = TRAIN_BATCH, table_width(D)
+    log(f"phase 4: adagrad update kernel vs plain at M={M} W={W}, Zipf touches")
+    worst = 0.0
+    for R in (TRAIN_ITEMS, TRAIN_USERS):
+        sidx_np, wg_np = zipf_touches(rng, M, R, W)
+        sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
+        table0 = torch.from_numpy((0.1 * rng.randn(R, W)).astype(np.float32)).to(dev)
+        acc0 = torch.from_numpy((1.0 + rng.rand(R, W)).astype(np.float32)).to(dev)
+        in_range = sidx[sidx < R]
+        runs = torch.unique_consecutive(in_range, return_counts=True)[1]
+        untouched = torch.ones(R, dtype=torch.bool, device=dev)
+        untouched[in_range.long()] = False
+        log(f"  R={R}: {runs.numel()} distinct rows, hottest row {int(runs.max())} touches, "
+            f"{int((sidx >= R).sum())} out-of-range touches, {int(untouched.sum())} untouched rows")
+        t_tol, a_tol = update_tolerance(torch, table0, acc0, sidx, wg)
+
+        def run(fn, s=sidx, g=wg, prec="default"):
+            t, a = table0.clone(), acc0.clone()
+            fn(t, a, s, g, LR, prec)
+            torch.cuda.synchronize()
+            return t, a
+
+        for prec in ("highest", "default"):
+            t1, a1 = run(au.sorted_adagrad_update, prec=prec)
+            t2, a2 = run(au.sorted_adagrad_update, prec=prec)
+            check(torch.equal(t1, t2) and torch.equal(a1, a2),
+                  f"R={R} {prec}: two launches are bitwise equal")
+            tp, ap = run(au.sorted_adagrad_update_plain, prec=prec)
+            dt, da = (t1 - tp).abs(), (a1 - ap).abs()
+            worst = max(worst, float(dt.max()), float(da.max()))
+            check(bool((dt <= t_tol).all() and (da <= a_tol).all()),
+                  f"R={R} {prec}: kernel equals plain within the summation-order bound "
+                  f"(max |d| table {float(dt.max()):.3g}, acc {float(da.max()):.3g})")
+            check(torch.equal(t1[untouched], table0[untouched])
+                  and torch.equal(a1[untouched], acc0[untouched]),
+                  f"R={R} {prec}: untouched rows are bitwise unchanged")
+        for what, s, g in (
+            ("zero gradients", sidx, torch.zeros_like(wg)),
+            ("every row out of range", torch.full_like(sidx, 2**30), wg),
+        ):
+            t1, a1 = run(au.sorted_adagrad_update, s, g)
+            check(torch.equal(t1, table0) and torch.equal(a1, acc0),
+                  f"R={R}: an all-masked call ({what}) changes nothing")
+        tw, aw = table0.clone(), acc0.clone()
+        z_ms = time_ms(torch, lambda: au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default"), reps=10)
+        z_plain = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, sidx, wg, LR, "default"), reps=5)
+        log(f"  R={R} Zipf touches: kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms")
+
+        if R == TRAIN_ITEMS:  # K4 once: the same touches in random order
+            order = torch.from_numpy(rng.permutation(M)).to(dev)
+            s, g = sidx[order].contiguous(), wg[order].contiguous()
+            t1, a1 = run(au.adagrad_update, s, g)
+            tp, ap = run(au.sorted_adagrad_update_plain, s, g)
+            err = max(float((t1 - tp).abs().max()), float((a1 - ap).abs().max()))
+            check(bool(((t1 - tp).abs() <= t_tol).all() and ((a1 - ap).abs() <= a_tol).all()),
+                  f"K4 (argsort + K1) equals plain within the same bound (max |d| {err:.3g})")
+            worst = max(worst, err)
+        del t_tol, a_tol
+        torch.cuda.empty_cache()
+    return worst
+
+
+def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_clusters: int = 64):
+    """A copy of ``bench.py:116-149`` (``_clustered_interactions``, unsigned):
+    users belong to clusters, each preferring a contiguous item range (80%
+    of draws in range), so the model can learn at any scale."""
+    rng = np.random.RandomState(seed)
+    cluster = rng.randint(0, n_clusters, n_users)
+    span = n_items // n_clusters
+    rows = rng.randint(0, n_users, nnz).astype(np.int32)
+    in_pref = rng.rand(nnz) < 0.8
+    lo = cluster[rows] * span
+    cols = np.where(in_pref, lo + rng.randint(0, span, nnz), rng.randint(0, n_items, nnz)).astype(np.int32)
+    coo = sp.coo_matrix((np.ones(nnz, np.float32), (rows, cols)), shape=(n_users, n_items))
+    coo.sum_duplicates()
+    return coo
+
+
+def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0) -> float:
+    """Train AUC over a random user sample, as ``bench.py:185-208``: rows
+    outside the sample are zeroed, so exactly the sampled users are ranked
+    over the full catalog (through the port's own ``auc_score``)."""
+    from lightfm_tpu_torch.evaluation import auc_score
+
+    users = np.random.RandomState(seed).choice(train_csr.shape[0], n_sample, replace=False)
+    keep = np.zeros(train_csr.shape[0], np.float32)
+    keep[users] = 1.0
+    sub = sp.diags(keep).dot(train_csr).tocsr()
+    sub.eliminate_zeros()
+    return float(auc_score(model, sub, check_intersections=False).mean())
+
+
+class Spans:
+    """CUDA events around calls of module functions, in call order.  Each
+    record is ``{"label", "start", "stop", "host_ms", "args"}``: ``host_ms``
+    is the call's time on the host clock (the host enqueues work and
+    returns, so where it is close to the events' time the device was
+    waiting on the host); ``args`` are kept only for the calls made inside
+    the ``capture_at = (label, n)``-th call (0-based) of that label, else
+    None."""
+
+    def __init__(self, torch, capture_at=None):
+        self.torch = torch
+        self.records = []
+        self.capture_at = capture_at
+        self._calls = {}
+        self._capture = False
+
+    @contextlib.contextmanager
+    def patch(self, targets):
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+        def wrap(label, fn):
+            def run(*a, **kw):
+                n = self._calls.get(label, 0)
+                self._calls[label] = n + 1
+                outer = self._capture
+                if (label, n) == self.capture_at:
+                    self._capture = True
+                rec = {"label": label, "args": a if self._capture else None,
+                       "start": self.torch.cuda.Event(enable_timing=True),
+                       "stop": self.torch.cuda.Event(enable_timing=True)}
+                self.records.append(rec)
+                t0 = time.perf_counter()
+                rec["start"].record()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    rec["stop"].record()
+                    rec["host_ms"] = (time.perf_counter() - t0) * 1e3
+                    self._capture = outer
+            return run
+
+        try:
+            for (mod, name, label), (_, _, fn) in zip(targets, saved):
+                setattr(mod, name, wrap(label, fn))
+            yield self
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+
+def step_breakdown(spans: Spans, epoch: int) -> dict:
+    """Per-part CUDA-event times of the steps of one epoch of a traced WARP
+    fit: the shuffle, then per step the forward and pool scoring (step
+    start to the item K1), K1 on the items, the pool scatter, the user
+    gradient permute (pool scatter end to the user K1), K1 on the users."""
+    epochs, cur = [], None
+    for rec in spans.records:
+        if rec["label"] == "epoch":
+            cur = {"shuffle": None, "steps": []}
+            epochs.append(cur)
+        elif rec["label"] == "shuffle":
+            cur["shuffle"] = rec
+        elif rec["label"] == "step":
+            cur["steps"].append([rec])
+        else:
+            cur["steps"][-1].append(rec)
+    ep = epochs[epoch]
+
+    def ms(a, b):
+        return a.elapsed_time(b)
+
+    parts = []
+    for step, k1_items, scatter, k1_users in ep["steps"]:
+        parts.append({
+            "forward and pool scoring": ms(step["start"], k1_items["start"]),
+            "K1 items": ms(k1_items["start"], k1_items["stop"]),
+            "pool scatter": ms(scatter["start"], scatter["stop"]),
+            "user gradient permute": ms(scatter["stop"], k1_users["start"]),
+            "K1 users": ms(k1_users["start"], k1_users["stop"]),
+            "whole step": ms(step["start"], step["stop"]),
+        })
+    names = list(parts[0])
+    return {
+        "shuffle_ms": ms(ep["shuffle"]["start"], ep["shuffle"]["stop"]),
+        "steps": len(parts),
+        "step_1": parts[1],
+        "mean_over_steps": {n: float(np.mean([p[n] for p in parts])) for n in names},
+    }
+
+
+def profiled_epoch(torch, train, model, seed: int) -> None:
+    """One more WARP epoch of the fitted model (through ``train.run_epochs``
+    on its staged data, so no host prep) under ``torch.profiler``: the
+    epoch's host-clock wall time, the device's busy time (the union of the
+    kernel and copy intervals the profiler saw), the idle share, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = (model._state, model._staged_train_data, [seed + 11], model._staged_hp,
+            model._staged_batch_size, model._staged_fast)
+    train.run_epochs(*args)  # warm-up outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train.run_epochs(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy_us, end = 0.0, -float("inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not spans:
+        log(f"  profiled epoch: {wall_ms:.3f} ms wall; the profiler saw no device time")
+        return
+    busy_ms = busy_us / 1e3
+    log(f"  profiled epoch: {wall_ms:.3f} ms wall (host clock), device busy {busy_ms:.3f} ms "
+        f"over {len(spans)} device intervals, idle share {1 - busy_ms / wall_ms:.4f}")
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    top = sorted(
+        (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
+        key=dev_us, reverse=True,
+    )[:12]
+    log("  top device kernels of the epoch (name, calls, ms): " + json.dumps(
+        [(e.key[:60], e.count, dev_us(e) / 1e3) for e in top]))
+
+
+def training_path(torch, seed: int) -> dict:
+    """Phase 5: ``LightFM.fit`` at the synth-5m-warp-d64 shape.  Every path
+    runs with the launch counts set to 0 just before it; returns the
+    kernels line's numbers for K1 and K4."""
+    from lightfm_tpu_torch import LightFM, fast_warp, train
+    from lightfm_tpu_torch.ops import adagrad_update as au
+    from lightfm_tpu_torch.ops import rank_counts as rc
+
+    def counted(fn, *args, **kwargs):
+        au.reset_launches()
+        rc.reset_launches()
+        out = fn(*args, **kwargs)
+        return out, {**au.launches, **rc.launches}
+
+    t0 = time.perf_counter()
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    csr = coo.tocsr()
+    log(f"phase 5: training, {TRAIN_USERS} users x {TRAIN_ITEMS} items, {coo.nnz} interactions, "
+        f"D={D}, batch {TRAIN_BATCH} (data made in {time.perf_counter() - t0:.1f} s)")
+
+    def model(**kw):
+        return LightFM(**{**dict(loss="warp", no_components=D, batch_size=TRAIN_BATCH,
+                                 random_state=seed), **kw})
+
+    # The main path, traced: epochs, shuffles, steps, K1 calls, pool
+    # scatters; the arguments of epoch 2's second step are kept.
+    steps_per_epoch = -(-coo.nnz // TRAIN_BATCH)
+    spans = Spans(torch, capture_at=("step", steps_per_epoch + 1))
+    targets = [(train, "_epoch", "epoch"), (fast_warp, "shuffle_item_sorted", "shuffle"),
+               (fast_warp, "warp_pool_step", "step"), (fast_warp, "_sorted_update", "k1"),
+               (fast_warp, "_scatter_update", "scatter")]
+    m = model()
+    check(m.device == "cuda", "LightFM() defaults to the CUDA device")
+    with spans.patch(targets):
+        torch.cuda.synchronize()
+        _, launches = counted(m.fit, coo, epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    steps = m._staged_train_data.packed.shape[1] // TRAIN_BATCH
+    check(steps == steps_per_epoch, f"{steps} steps per epoch")
+    check(m._staged_fast == "einsum", "fit engaged the fast path")
+    want = 2 * steps * TRAIN_EPOCHS
+    check(launches["sorted_adagrad_update"] == want,
+          f"K1 launched 2 x {steps} steps x {TRAIN_EPOCHS} epochs = {want} times in the fit")
+    epochs = [r for r in spans.records if r["label"] == "epoch"]
+    epoch_ms = [r["start"].elapsed_time(r["stop"]) for r in epochs]
+    steady_ms = float(np.median(epoch_ms[1:]))
+    log(f"  fit: {m.fit_stats_.wall_s:.3f} s wall, {m.fit_stats_.examples_per_sec:.1f} examples/s; "
+        f"epoch ms (CUDA events): {json.dumps(epoch_ms)}; "
+        f"host ms to enqueue each epoch: {json.dumps([r['host_ms'] for r in epochs])}")
+    log(f"  steady epoch {steady_ms:.3f} ms (median of epochs 2-{TRAIN_EPOCHS}) = "
+        f"{coo.nnz / (steady_ms / 1e3):.1f} examples/s")
+    breakdown = step_breakdown(spans, 1)
+    log("  step breakdown, epoch 2 (ms): " + json.dumps(breakdown))
+    auc = auc_sample(m, csr)
+    log(f"  train-sample AUC over 2,048 users after {TRAIN_EPOCHS} epochs: {auc:.4f}")
+    check(auc >= AUC_FLOOR, f"train-sample AUC {auc:.4f} >= {AUC_FLOOR}")
+    check(bool(torch.isfinite(m._state.item_table).all() and torch.isfinite(m._state.user_table).all()),
+          "tables are finite")
+
+    k1_calls = [r for r in spans.records if r["label"] == "k1" and r["args"] is not None]
+    item_args, user_args = k1_calls[0]["args"], k1_calls[1]["args"]
+    spans.records = []
+    profiled_epoch(torch, train, m, seed)
+
+    path_launches = {"fit warp x15": launches}
+    runs = []
+    for _ in range(2):
+        (r, path_launches["fit warp x1 (determinism)"]) = counted(
+            model(random_state=seed + 7).fit, coo, epochs=1
+        )
+        runs.append(r._state)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "two same-seed 1-epoch fits give bitwise-equal state")
+    del runs
+    for name, kw, k1_per_step in (
+        ("bpr", dict(loss="bpr"), 2),
+        ("logistic", dict(loss="logistic"), 2),
+        ("warp user_pallas=False", dict(user_pallas=False), 1),
+    ):
+        r, path_launches[f"fit {name} x1"] = counted(model(**kw).fit, coo, epochs=1)
+        got = path_launches[f"fit {name} x1"]["sorted_adagrad_update"]
+        log(f"  {name}: 1 epoch {r.fit_stats_.wall_s:.3f} s wall (host prep included)")
+        check(r._staged_fast == "einsum" and got == k1_per_step * steps,
+              f"{name}: fast path, K1 launched {k1_per_step} x {steps} = {got} times")
+        check(bool(torch.isfinite(r._state.item_table).all()), f"{name}: tables are finite")
+    log("  kernel launches by path (each counted from 0): " + json.dumps(path_launches))
+
+    # K1 and K4 timed on the real touches of epoch 2, step 2.
+    from lightfm_tpu_torch.state import table_width
+
+    W = table_width(D)
+    rows = {}
+    for side, args, table, acc in (("items", item_args, m._state.item_table, m._state.item_acc),
+                                   ("users", user_args, m._state.user_table, m._state.user_acc)):
+        sidx, wg = args[2].contiguous(), args[3].contiguous()
+        M = sidx.shape[0]
+        tw, aw = table.clone(), acc.clone()
+        k_ms = time_ms(torch, lambda: au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default"), reps=20)
+        p_ms = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, sidx, wg, LR, "default"), reps=10)
+        tk, ak = table.clone(), acc.clone()
+        au.sorted_adagrad_update(tk, ak, sidx, wg, LR, "default")
+        tp, ap = table.clone(), acc.clone()
+        au.sorted_adagrad_update_plain(tp, ap, sidx, wg, LR, "default")
+        t_tol, a_tol = update_tolerance(torch, table, acc, sidx, wg)
+        err = max(float((tk - tp).abs().max()), float((ak - ap).abs().max()))
+        check(bool(((tk - tp).abs() <= t_tol).all() and ((ak - ap).abs() <= a_tol).all()),
+              f"K1 on the step's {side}: kernel equals plain within the bound (max |d| {err:.3g})")
+        runs_ = torch.unique_consecutive(sidx, return_counts=True)[1]
+        distinct = int(runs_.numel())
+        bound = (4 * M * (W + 1) + 16 * W * distinct) / HBM_BYTES_PER_S * 1e3
+        rows[side] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "max_abs_err": err,
+                      "distinct": distinct, "hottest": int(runs_.max()), "M": M}
+        if side == "items":
+            order = torch.randperm(M, device=sidx.device)
+            us, ug = sidx[order].contiguous(), wg[order].contiguous()
+            k4_ms = time_ms(torch, lambda: au.adagrad_update(tw, aw, us, ug, LR, "default"), reps=20)
+            k4_plain = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, us, ug, LR, "default"), reps=10)
+            t4, a4 = table.clone(), acc.clone()
+            _, k4_launches = counted(au.adagrad_update, t4, a4, us, ug, LR, "default")
+            k4_err = max(float((t4 - tp).abs().max()), float((a4 - ap).abs().max()))
+            check(k4_launches["adagrad_update"] == 1 and k4_launches["sorted_adagrad_update"] == 1,
+                  "one K4 call launches K1 once")
+            check(bool(((t4 - tp).abs() <= t_tol).all() and ((a4 - ap).abs() <= a_tol).all()),
+                  f"K4 on the step's shuffled items equals plain within the bound")
+            rows["k4"] = {"ms": k4_ms, "plain_ms": k4_plain, "bound_ms": bound,
+                          "launches": k4_launches["adagrad_update"], "max_abs_err": k4_err}
+        del tw, aw, tk, ak, tp, ap, t_tol, a_tol
+    log("  K1/K4 on the real step touches (ms, default precision): " + json.dumps(rows))
+    torch.cuda.empty_cache()
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -442,9 +862,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log("rank_counts").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    for name in ("rank_counts", "adagrad_update"):
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}:", line.strip())
     card = nvidia_smi("name,power.limit")
 
     i_pad = -(-(N_ITEMS + 1) // 2048) * 2048  # the ranking path's padded catalog
@@ -453,6 +874,31 @@ def main() -> int:
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the serving path")
+
+    zipf_err = update_kernel_checks(torch, args.seed)
+    trained = training_path(torch, args.seed)
+    items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
+    k1_launches = trained["launches"]["sorted_adagrad_update"]
+    check(k1_launches > 0, "sorted_adagrad_update launched on the training path")
+    kernels += [
+        {
+            "name": "sorted_adagrad_update", "route": "cuda",
+            "source": "lightfm_tpu_torch/csrc/adagrad_update.cu",
+            "replaces": "lightfm_tpu/ops/pallas_update.py:234",
+            "launches": k1_launches,
+            "max_abs_err": max(zipf_err, items["max_abs_err"], trained["rows"]["users"]["max_abs_err"]),
+            "ms": items["ms"], "plain_ms": items["plain_ms"], "bound_ms": items["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "adagrad_update", "route": "cuda",
+            "source": "lightfm_tpu_torch/csrc/adagrad_update.cu",
+            "replaces": "lightfm_tpu/ops/pallas_update.py:139",
+            "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+            "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+        },
+    ]
 
     log(card)
     log(json.dumps({"kernels": kernels}))

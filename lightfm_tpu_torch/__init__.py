@@ -1,9 +1,11 @@
 """lightfm_tpu_torch: the PyTorch / CUDA port of lightfm_tpu.
 
-It serves models (``predict``, ``predict_rank`` and the evaluation metrics,
-``recommend``) on an NVIDIA GPU through hand-written Hopper kernels; it
-imports neither ``jax`` nor ``lightfm_tpu``.  Training is not ported yet
-(see ROADMAP.md): load a checkpoint that ``lightfm_tpu`` wrote with
+It trains models on the fast path (``fit`` with WARP, BPR or logistic,
+identity features, adagrad) and serves them (``predict``, ``predict_rank``
+and the evaluation metrics, ``recommend``) on an NVIDIA GPU through
+hand-written Hopper kernels; it imports neither ``jax`` nor
+``lightfm_tpu``.  Other training configurations are not ported yet (see
+ROADMAP.md): train them with ``lightfm_tpu`` and load the checkpoint with
 :func:`load_model`.
 """
 

@@ -1,13 +1,14 @@
-"""The LightFM-compatible hybrid factorization model: serving surface.
+"""The LightFM-compatible hybrid factorization model.
 
-Counterpart of ``lightfm_tpu/model.py:83-1420`` minus training: the
-constructor, ``predict``, ``predict_rank``, ``recommend``,
+Counterpart of ``lightfm_tpu/model.py:83-1420``: the constructor,
+``fit``/``fit_partial``, ``predict``, ``predict_rank``, ``recommend``,
 ``get_*_representations``, ``get_params``/``set_params``, pickling and the
 twelve reference state arrays as numpy views that user code may edit in
-place.  ``fit``/``fit_partial`` are not ported yet (see ROADMAP.md); a
-model gets its state from a checkpoint (:func:`lightfm_tpu_torch.load_model`,
-which reads files the JAX package writes) or from
-:mod:`lightfm_tpu_torch.interop`.
+place.  ``fit`` trains on the fast path only (WARP, BPR or logistic with
+identity features and adagrad, see :meth:`LightFM.fit_partial`); a model
+can also take its state from a checkpoint
+(:func:`lightfm_tpu_torch.load_model`, which reads files the JAX package
+writes) or from :mod:`lightfm_tpu_torch.interop`.
 
 ``device`` is the one argument the JAX class does not have.  It defaults to
 ``"cuda"``; without a CUDA device the constructor raises rather than run on
@@ -196,17 +197,272 @@ class LightFM:
         self._host_mirrors: dict = {}
         self._mirror_snaps: dict = {}
 
-    def fit(self, interactions, *args, **kwargs):
-        """Training is not ported yet (ROADMAP.md, slice 2)."""
-        raise NotImplementedError(
-            "lightfm_tpu_torch serves models but does not train them yet; "
-            "see ROADMAP.md (slice 2). Train with lightfm_tpu and load the "
-            "checkpoint with lightfm_tpu_torch.load_model."
+    def _hp(self, bpr_tries: int = 8) -> Hyperparams:
+        return Hyperparams(
+            no_components=self.no_components,
+            k=int(self.k),
+            n=int(self.n),
+            learning_schedule=self.learning_schedule,
+            loss=self.loss,
+            learning_rate=self.learning_rate,
+            rho=self.rho,
+            epsilon=self.epsilon,
+            item_alpha=self.item_alpha,
+            user_alpha=self.user_alpha,
+            max_sampled=self.max_sampled,
+            batch_size=self.batch_size,
+            bpr_tries=bpr_tries,
+            fast_path=self.fast_path,
+            pool_kernels=self.pool_kernels,
+            user_pallas=self.user_pallas,
+            fast_precision=self.fast_precision,
+            shuffle_mode=self.shuffle_mode,
         )
 
-    def fit_partial(self, interactions, *args, **kwargs):
-        """Training is not ported yet (ROADMAP.md, slice 2)."""
-        return self.fit(interactions, *args, **kwargs)
+    @staticmethod
+    def _bpr_tries_for(interactions) -> int:
+        """Rejection-draw budget for BPR's empirical negative sampling
+        (``lightfm_tpu/model.py:229-257``): sized so the user whose
+        positives carry the most empirical mass falls through < 1e-3 of the
+        time, a power of two in [8, 64]."""
+        nnz = interactions.nnz
+        if nnz == 0:
+            return 8
+        csr = sp.csr_matrix(interactions)
+        item_counts = np.asarray(csr.getnnz(axis=0), dtype=np.float64).ravel()
+        indicator = csr.copy()
+        indicator.data = np.ones_like(indicator.data)
+        user_mass = indicator.dot(item_counts)
+        p = min(float(user_mass.max(initial=0.0)) / nnz, 0.99)
+        if p <= 0:
+            return 8
+        need = int(np.ceil(np.log(1e-3) / np.log(p))) if p > 1e-3 else 1
+        return int(min(64, max(8, 1 << (max(need, 1) - 1).bit_length())))
+
+    def _process_sample_weight(self, interactions, sample_weight):
+        if sample_weight is not None:
+            if self.loss == "warp-kos":
+                raise NotImplementedError("k-OS loss with sample weights not implemented.")
+            if not isinstance(sample_weight, sp.coo_matrix):
+                raise ValueError("Sample_weight must be a COO matrix.")
+            if sample_weight.shape != interactions.shape:
+                raise ValueError(
+                    "Sample weight and interactions matrices must be the same shape"
+                )
+            if not (
+                np.array_equal(interactions.row, sample_weight.row)
+                and np.array_equal(interactions.col, sample_weight.col)
+            ):
+                raise ValueError(
+                    "Sample weight and interaction matrix "
+                    "entries must be in the same order"
+                )
+            if sample_weight.data.dtype != CYTHON_DTYPE:
+                return sample_weight.data.astype(CYTHON_DTYPE)
+            return sample_weight.data
+        if np.array_equiv(interactions.data, 1.0):
+            return interactions.data
+        return np.ones_like(interactions.data, dtype=CYTHON_DTYPE)
+
+    def _check_finite(self):
+        for parameter in (self._state.item_table, self._state.user_table):
+            if not torch.isfinite(parameter.sum()).item():
+                raise ValueError(
+                    "Not all estimated parameters are finite,"
+                    " your model may have diverged. Try decreasing"
+                    " the learning rate or normalising feature values"
+                    " and sample weights"
+                )
+
+    @staticmethod
+    def _check_input_finite(data):
+        if not np.isfinite(np.sum(data)):
+            raise ValueError(
+                "Not all input values are finite. "
+                "Check the input for NaNs and infinite values."
+            )
+
+    @staticmethod
+    def _progress(n, verbose):
+        if not verbose:
+            return range(n)
+        try:
+            from tqdm import trange
+
+            return trange(n, desc="Epoch")
+        except ImportError:
+
+            def verbose_range():
+                for i in range(n):
+                    print("Epoch {}".format(i))
+                    yield i
+
+            return verbose_range()
+
+    def fit(
+        self,
+        interactions,
+        user_features=None,
+        item_features=None,
+        sample_weight=None,
+        epochs=1,
+        num_threads=1,
+        verbose=False,
+        checkpoint_every_n_epochs=None,
+        checkpoint_path=None,
+    ):
+        """Fit the model, discarding any previously learned state."""
+        self._reset_state()
+        return self.fit_partial(
+            interactions,
+            user_features=user_features,
+            item_features=item_features,
+            sample_weight=sample_weight,
+            epochs=epochs,
+            num_threads=num_threads,
+            verbose=verbose,
+            checkpoint_every_n_epochs=checkpoint_every_n_epochs,
+            checkpoint_path=checkpoint_path,
+        )
+
+    def fit_partial(
+        self,
+        interactions,
+        user_features=None,
+        item_features=None,
+        sample_weight=None,
+        epochs=1,
+        num_threads=1,
+        verbose=False,
+        checkpoint_every_n_epochs=None,
+        checkpoint_path=None,
+    ):
+        """Fit the model, resuming from the current state if already fitted.
+
+        Trains on the fast path (:mod:`lightfm_tpu_torch.fast_warp`): loss
+        ``warp``, ``bpr`` or ``logistic``, adagrad, no L2, identity
+        features, an item table of at least 2^19 elements (rows x padded
+        width), ``fast_path="on"`` or ``"auto"`` on a CUDA device.  Other
+        configurations raise ``NotImplementedError`` naming the ROADMAP.md
+        item that ports them.  Every epoch draws one seed from
+        ``random_state``, which seeds that epoch's ``torch.Generator``.
+        """
+        if checkpoint_every_n_epochs is not None:
+            raise NotImplementedError(
+                "checkpoint_every_n_epochs (mid-fit checkpoints) is not ported "
+                "yet (ROADMAP.md, item 5); save with lightfm_tpu_torch.save_model "
+                "after fit"
+            )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "training over a device mesh is not ported yet (ROADMAP.md, item 7)"
+            )
+        from lightfm_tpu_torch.fast_warp import apply_env_overrides, fast_warp_eligible
+        from lightfm_tpu_torch.observability import FitStats
+        from lightfm_tpu_torch.state import init_state
+        from lightfm_tpu_torch.train import (
+            _generic_path_error,
+            _no_op,
+            build_train_data,
+            choose_batch_size,
+            run_epoch,
+            run_epochs,
+        )
+
+        # Fold pending in-place edits of handed-out state views first.
+        self._sync_mirrors()
+        interactions = interactions.tocoo()
+        if interactions.dtype != CYTHON_DTYPE:
+            interactions.data = interactions.data.astype(CYTHON_DTYPE)
+
+        sample_weight_data = self._process_sample_weight(interactions, sample_weight)
+
+        n_users, n_items = interactions.shape
+        (user_features, item_features) = self._construct_feature_matrices(
+            n_users, n_items, user_features, item_features
+        )
+
+        for input_data in (
+            user_features.data,
+            item_features.data,
+            interactions.data,
+            sample_weight_data,
+        ):
+            self._check_input_finite(input_data)
+
+        if not (self._is_identity(user_features) and self._is_identity(item_features)):
+            raise NotImplementedError(
+                "training with user or item feature matrices (the hybrid fast "
+                "path, kernel K3) is not ported yet (ROADMAP.md, item 2); the "
+                "port trains identity features only"
+            )
+        if self._state is not None:
+            if not item_features.shape[1] == self._state.item_table.shape[0]:
+                raise ValueError("Incorrect number of features in item_features")
+            if not user_features.shape[1] == self._state.user_table.shape[0]:
+                raise ValueError("Incorrect number of features in user_features")
+        if num_threads < 1:
+            raise ValueError("Number of threads must be 1 or larger.")
+
+        hp = apply_env_overrides(
+            self._hp(bpr_tries=self._bpr_tries_for(interactions) if self.loss == "bpr" else 8)
+        )
+        batch_size = choose_batch_size(len(interactions.data), self.batch_size)
+        data = build_train_data(
+            interactions,
+            np.asarray(sample_weight_data),
+            identity_rows(user_features.shape[0]),
+            identity_rows(item_features.shape[0]),
+            hp,
+            batch_size,
+            self._device,
+        )
+        fast = fast_warp_eligible(hp, data, self.mesh, self.example_shuffle, batch_size)
+        if not fast and not _no_op(hp):
+            raise _generic_path_error(hp)
+
+        if self._state is None:
+            self._state = init_state(
+                self.no_components,
+                item_features.shape[1],
+                user_features.shape[1],
+                self.random_state,
+                adagrad=(self.learning_schedule == "adagrad"),
+                device=self._device,
+            )
+        # Remembered for serving defaults (recommend's catalog size).
+        self.n_users_, self.n_items_ = n_users, n_items
+        self._item_features_used = False
+        self._user_features_used = False
+
+        # The staged device-resident training set, so callers (tests,
+        # benchmarks) can run epochs again without the host prep.
+        self._staged_train_data = data
+        self._staged_hp = hp
+        self._staged_batch_size = batch_size
+        self._staged_fast = fast
+
+        stats = FitStats(n_examples=len(interactions.data), epochs=epochs)
+        # One seed per epoch from the numpy RandomState, whatever the
+        # dispatch granularity (the reference's random-state contract).
+        seeds = self.random_state.randint(0, np.iinfo(np.int32).max, size=epochs).astype(
+            np.uint32
+        )
+        if verbose:
+            for i in self._progress(epochs, verbose=verbose):
+                self._state = run_epoch(
+                    self._state, data, int(seeds[i]), hp, batch_size, fast=fast
+                )
+                self._check_finite()
+        elif epochs > 0:
+            self._state = run_epochs(self._state, data, seeds, hp, batch_size, fast=fast)
+            self._check_finite()
+
+        self.fit_stats_ = stats.finish()
+        # Outstanding host mirrors are snapshots of the pre-fit state.
+        self._drop_mirrors()
+        self._drop_state_dependent_cache()
+        return self
 
     def _check_initialized(self):
         if self._state is None:
@@ -724,6 +980,9 @@ class LightFM:
         d.pop("_mirror_snaps", None)
         d.pop("mesh", None)  # device handles are not picklable
         d.pop("_serving_cache", None)  # rebuildable device buffers
+        # The staged device-resident training set: rebuilt by every fit.
+        for name in ("_staged_train_data", "_staged_hp", "_staged_batch_size", "_staged_fast"):
+            d.pop(name, None)
         d["_device"] = str(self._device)
         state = d.pop("_state")
         d["_state_np"] = (

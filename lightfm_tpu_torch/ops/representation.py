@@ -8,26 +8,43 @@ store that layout directly, so identity features are one row gather.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows
+
+
+@contextlib.contextmanager
+def ieee_fp32(x: torch.Tensor):
+    """CUDA matmuls inside the block run in IEEE fp32: TF32 is switched off
+    (``torch.backends.cuda.matmul.allow_tf32 = False``) when ``x`` is on a
+    CUDA device, and restored after."""
+    flags = torch.backends.cuda.matmul
+    if not x.is_cuda or not flags.allow_tf32:
+        yield
+        return
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = True
 
 
 def f32_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """IEEE fp32 ``a @ b`` for serving-path scores and feature reductions.
 
     Exact ``>=`` rank ties and scores that agree with :func:`score_pairs`
-    need full fp32 products, so TF32 is switched off for the call
-    (``torch.backends.cuda.matmul.allow_tf32 = False``, restored after).
+    need full fp32 products, so TF32 is off for the call.
     """
-    flags = torch.backends.cuda.matmul
-    if not a.is_cuda or not flags.allow_tf32:
+    with ieee_fp32(a):
         return a @ b
-    flags.allow_tf32 = False
-    try:
-        return a @ b
-    finally:
-        flags.allow_tf32 = True
+
+
+def round_to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round fp32 values to bf16, nearest even, and back to fp32: the
+    operand rounding of the training path's ``fast_precision="default"``."""
+    return x.bfloat16().float()
 
 
 def batch_representation(

@@ -1,10 +1,12 @@
-"""Padded sparse row structures (serving subset).
+"""Padded sparse row structures.
 
-Counterpart of ``lightfm_tpu/sparse.py:27-268``.  Ragged CSR rows become
-dense ``[n_rows, max_nnz]`` index/weight tensors padded with zero-weight
+Counterpart of ``lightfm_tpu/sparse.py``.  Ragged CSR rows become dense
+``[n_rows, max_nnz]`` index/weight tensors padded with zero-weight
 entries, which are exact no-ops in every weighted sum, so the read path
-needs no masking.  ``PaddedSortedRows`` and the membership tests serve
-training and come with it.
+needs no masking.  :class:`PaddedSortedRows` keeps each row's columns
+sorted and padded with an out-of-range sentinel for the training path's
+negative-rejection membership tests (the reference's ``bsearch``,
+``_lightfm_fast.pyx.template:270-284``).
 """
 
 from __future__ import annotations
@@ -208,3 +210,76 @@ def trim_rows(features, n: int):
 def identity_rows(n: int) -> IdentityRows:
     """The identity-features fast path: row i has a single feature i, weight 1."""
     return IdentityRows(int(n))
+
+
+class PaddedSortedRows(NamedTuple):
+    """Per-row sorted indices with an out-of-range sentinel pad.
+
+    ``idx`` int32 [n_rows, width], each row ascending and padded with
+    ``n_cols`` (greater than any valid id); ``lengths`` int32 [n_rows] the
+    kept entries per row.
+    """
+
+    idx: torch.Tensor
+    lengths: torch.Tensor
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.idx.shape[0]
+
+
+def pad_csr_sorted(
+    csr, pad_multiple: int = 1, max_width: int | None = None, device="cpu"
+) -> PaddedSortedRows:
+    """Convert a scipy CSR to sorted, sentinel-padded rows on ``device``.
+
+    ``max_width`` caps the padded width: longer rows keep their first
+    ``max_width`` sorted columns, so the membership test is approximate for
+    them (statistically safe for negative rejection), and ``lengths`` is
+    clipped to the kept width.
+    """
+    import scipy.sparse as sp
+
+    csr = sp.csr_matrix(csr)
+    if not csr.has_sorted_indices:
+        csr = csr.sorted_indices()
+    n_rows, n_cols = csr.shape
+    lengths = np.diff(csr.indptr).astype(np.int32)
+    width = max(int(lengths.max()) if len(lengths) else 1, 1)
+    if max_width is not None:
+        width = min(width, max_width)
+    width = _round_up(width, pad_multiple)
+
+    kept = np.minimum(lengths, width)
+    idx = np.full((n_rows, width), n_cols, dtype=np.int32)
+    if csr.nnz:
+        row_of = np.repeat(np.arange(n_rows), kept)
+        pos_in_row = np.arange(int(kept.sum())) - np.repeat(np.cumsum(kept) - kept, kept)
+        flat = np.repeat(csr.indptr[:-1], kept) + pos_in_row
+        idx[row_of, pos_in_row] = csr.indices[flat].astype(np.int32)
+    return PaddedSortedRows(
+        torch.from_numpy(idx).to(device), torch.from_numpy(kept).to(device), n_cols
+    )
+
+
+def in_positives(
+    rows: PaddedSortedRows, row_ids: torch.Tensor, col_ids: torch.Tensor
+) -> torch.Tensor:
+    """Is ``col_ids[b, ...]`` in row ``row_ids[b]``?  ``row_ids`` is [B],
+    ``col_ids`` [B] or [B, K]; returns bool of ``col_ids``'s shape.  Each
+    row's list is gathered once and broadcast against its queries; the
+    sentinel pad never matches a valid id."""
+    table = rows.idx[row_ids.long()]  # [B, width]
+    if col_ids.dim() == row_ids.dim():
+        return (table == col_ids[..., None]).any(-1)
+    return (table[..., None, :] == col_ids[..., None]).any(-1)
+
+
+def in_positives_slots(
+    rows: PaddedSortedRows, row_ids: torch.Tensor, col_ids: torch.Tensor
+) -> torch.Tensor:
+    """Slot-major :func:`in_positives`: ``col_ids`` is [K, B] (candidate
+    slot k of batch row b); returns bool [K, B]."""
+    table = rows.idx[row_ids.long()]  # [B, width]
+    return (table[None, :, :] == col_ids[:, :, None]).any(-1)

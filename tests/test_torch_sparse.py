@@ -76,3 +76,37 @@ def test_content_fingerprint_matches_jax_and_sees_swaps():
     assert sparse.content_fingerprint(swapped) != sparse.content_fingerprint(csr)
     coo = csr.tocoo()
     assert sparse.content_fingerprint(coo) == jax_sparse.content_fingerprint(coo)
+
+
+@pytest.mark.parametrize(
+    "kwargs", [{}, {"pad_multiple": 8}, {"max_width": 3}, {"max_width": 5, "pad_multiple": 4}]
+)
+def test_pad_csr_sorted_matches_jax(kwargs):
+    csr = _skewed_csr(seed=3)
+    csr = csr[:, ::-1].tocsr()  # unsorted column order within rows
+    got = sparse.pad_csr_sorted(csr, **kwargs)
+    want = jax_sparse.pad_csr_sorted(csr, **kwargs)
+    assert np.array_equal(got.idx.numpy(), np.asarray(want.idx))
+    assert np.array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+    assert got.n_cols == want.n_cols and got.n_rows == want.n_rows
+
+
+def test_in_positives_match_jax():
+    import torch
+
+    csr = _skewed_csr(seed=4)
+    rows_t = sparse.pad_csr_sorted(csr, pad_multiple=8)
+    rows_j = jax_sparse.pad_csr_sorted(csr, pad_multiple=8)
+    rng = np.random.RandomState(5)
+    row_ids = rng.randint(0, 40, 64).astype(np.int32)
+    for shape in ((64,), (64, 6)):
+        cols = rng.randint(0, 31, shape).astype(np.int32)  # 30 is the sentinel
+        got = sparse.in_positives(rows_t, torch.tensor(row_ids), torch.tensor(cols))
+        want = jax_sparse.in_positives(rows_j, row_ids, cols)
+        assert got.dtype == torch.bool and np.array_equal(got.numpy(), np.asarray(want))
+    slots = rng.randint(0, 30, (6, 64)).astype(np.int32)
+    got = sparse.in_positives_slots(rows_t, torch.tensor(row_ids), torch.tensor(slots))
+    want = jax_sparse.in_positives_slots(rows_j, row_ids, slots)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    dense = csr.toarray() != 0
+    assert np.array_equal(got.numpy(), dense[row_ids[None, :], slots])
