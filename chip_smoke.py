@@ -9,15 +9,21 @@ PyTorch version at the serving shape of ``benchmarks/bench_serving.py``
 ``LightFM.predict_rank`` with the four metrics, ``recommend`` and
 ``predict`` at that width with random weights made from ``--seed``, and
 checks what comes out.  Then it holds the adagrad update kernel (K1, and
-K4 over it) against its plain version at the training step's shape, and
-trains with ``LightFM.fit`` at the ``synth-5m-warp-d64`` shape of
-``benchmarks/bench_training.py`` (200,000 users x 100,000 items, 5M
-interactions, D=64, batch 131,072): 15 WARP epochs with a train-sample AUC
-guard, a same-seed determinism check, one epoch each of BPR, logistic and
-``user_pallas=False``, per-epoch CUDA-event times and one step broken into
-spans.  Any failed check raises, so the exit code is non-zero; the last
-stdout line is the device record, the line before it the per-kernel
-record.
+K4 over it) and the gradient-sums kernel (K3) against their plain versions
+at the training step's shape, and trains with ``LightFM.fit`` at the
+``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
+users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
+epochs with a train-sample AUC guard, a same-seed determinism check, one
+epoch each of BPR, logistic and ``user_pallas=False``, per-epoch CUDA-event
+times and one step broken into spans.  The same data then trains the hybrid
+path at the ``warp-hybrid`` shape of ``bench.py`` (item features: identity +
+2,048 tags): 15 WARP epochs through K3 with an AUC guard, ``predict_rank``
+with the item features through the rank kernels, determinism, one BPR
+epoch and its own step spans.  Last, the whole-fit WARP kernel (K5)
+runs a 30-epoch fit at the size of the synthetic MovieLens 100k (943 users
+x 1,682 items, D=10) in one launch, against its plain version.  Any failed
+check raises, so the exit code is non-zero; the last stdout line is the
+device record, the line before it the per-kernel record.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -45,6 +51,19 @@ TRAIN_EPOCHS = 15  # the JAX package's accuracy-guard epoch count (bench.py)
 AUC_FLOOR = 0.97  # train-sample AUC over 2,048 users (JAX package: 0.9924)
 LR = 0.05  # LightFM's default learning rate
 DEVICE = "cuda"  # phase 4's tensors; a CPU rehearsal points it at "cpu"
+
+# Hybrid shape: `warp-hybrid` (bench.py:414, 152-182) on the training data
+# above -- item features identity + N_TAGS tags (one block tag and 5 noise
+# tags per item), D=64, batch 131,072, 15 WARP epochs.
+N_TAGS = 2048
+HYBRID_EPOCHS = 15
+HYBRID_AUC_FLOOR = 0.94  # JAX package on the TPU: 0.954 (BENCH_r05.json)
+
+# Whole-fit kernel (K5) shape: the quickstart's synthetic MovieLens 100k
+# (bench.py:93-113, lightfm_tpu/datasets/synthetic.py:19-29) -- 943 users x
+# 1,682 items, ~19k positives after the min_rating 5 cut, D=10, K=10, 30
+# epochs.
+FIT_USERS, FIT_ITEMS, FIT_D, FIT_K, FIT_EPOCHS = 943, 1682, 10, 10, 30
 
 
 def log(*parts):
@@ -250,11 +269,12 @@ def planted_data(seed: int):
 
 def check_ranks_float64(ranks, test, train, user_table, item_table, users):
     """Ranks of sampled users against float64 numpy: equal, except where a
-    catalog score lies within 1e-5 * max|score| of the test score."""
+    catalog score lies within 1e-5 * max|score| of the test score.  Returns
+    the counts of exact and near-tie ranks and the widest band of near ties."""
     u = user_table[users].astype(np.float64)
     it = item_table.astype(np.float64)
     scores = u[:, :-1] @ it[:, :-1].T + u[:, -1:] + it[None, :, -1]
-    n_exact = n_near = 0
+    n_exact = n_near = widest = 0
     for r, user in enumerate(users):
         s = scores[r]
         s[train.indices[train.indptr[user] : train.indptr[user + 1]]] = -np.inf
@@ -268,7 +288,8 @@ def check_ranks_float64(ranks, test, train, user_table, item_table, users):
                 raise AssertionError(f"user {user}: rank {got} outside [{lo}, {hi}]")
             n_exact += lo == hi
             n_near += lo != hi
-    return n_exact, n_near
+            widest = max(widest, hi - lo)
+    return n_exact, n_near, widest
 
 
 def counted(rc, fn, *args, **kwargs):
@@ -371,7 +392,7 @@ def serving_path(torch, seed: int) -> dict:
     check(bool((ranks.data >= 0).all() and (ranks.data <= N_ITEMS - 1 - n_train).all()),
           "every rank lies in [0, n_items - 1 - n_train(u)]")
     sample = np.random.RandomState(seed + 1).choice(N_USERS, 256, replace=False)
-    n_exact, n_near = check_ranks_float64(
+    n_exact, n_near, _ = check_ranks_float64(
         ranks, test, train, arrays["user_table"], arrays["item_table"], sample
     )
     check(n_exact > 0.9 * (n_exact + n_near),
@@ -551,6 +572,75 @@ def update_kernel_checks(torch, seed: int) -> float:
     return worst
 
 
+def sums_tolerance(torch, sidx, wg, n_rows: int):
+    """Per-element bound on |kernel - plain| for K3: each side sums a row's
+    n_r terms (wg, and wg^2 in the second half) in fp32 in its own order, so
+    each is within (n_r + 1) * 2^-23 * sum|terms| of the exact sum; twice
+    that bounds their difference."""
+    keep = sidx < n_rows
+    rows = sidx[keep].long()
+    g = wg[keep].double()
+    n = torch.zeros(n_rows, dtype=torch.float64, device=wg.device)
+    n.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
+    terms = torch.zeros((n_rows, 2 * wg.shape[1]), dtype=torch.float64, device=wg.device)
+    terms.index_add_(0, rows, torch.cat([g.abs(), g * g], dim=1))
+    return 2 * (n[:, None] + 1) * 2.0**-23 * terms
+
+
+def check_grad_sums(torch, gs, sidx, wg, n_rows: int, what: str) -> float:
+    """K3 against its plain version on one set of touches, at both
+    precisions: two launches bitwise equal, within the summation-order
+    bound, untouched rows exactly 0, out-of-range touches ignored.  Returns
+    the largest difference."""
+    tol = sums_tolerance(torch, sidx, wg, n_rows)
+    in_range = sidx < n_rows
+    untouched = torch.ones(n_rows, dtype=torch.bool, device=sidx.device)
+    untouched[sidx[in_range].long()] = False
+    worst = 0.0
+    for prec in ("highest", "default"):
+        a = gs.sorted_grad_sums(sidx, wg, n_rows, prec)
+        b = gs.sorted_grad_sums(sidx, wg, n_rows, prec)
+        check(torch.equal(a, b), f"K3 {what} {prec}: two launches are bitwise equal")
+        d = (a - gs.sorted_grad_sums_plain(sidx, wg, n_rows, prec)).abs()
+        worst = max(worst, float(d.max()))
+        check(bool((d <= tol).all()),
+              f"K3 {what} {prec}: kernel equals plain within the summation-order bound "
+              f"(max |d| {float(d.max()):.3g})")
+        check(not bool(a[untouched].any()), f"K3 {what} {prec}: untouched rows are exactly 0")
+        if not bool(in_range.all()):
+            c = gs.sorted_grad_sums(sidx[in_range].contiguous(), wg[in_range].contiguous(),
+                                    n_rows, prec)
+            check(torch.equal(a, c), f"K3 {what} {prec}: out-of-range touches are ignored")
+    return worst
+
+
+def grad_sums_checks(torch, seed: int) -> dict:
+    """Phase 4b: K3 against its plain version at the hybrid step's shape
+    (M = 131,072 touches, W = 72, n_rows = 100,000) on Zipf touches;
+    all-out-of-range and empty calls.  Returns the largest difference."""
+    from lightfm_tpu_torch.ops import grad_sums as gs
+    from lightfm_tpu_torch.state import table_width
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 5)
+    M, W, R = TRAIN_BATCH, table_width(D), TRAIN_ITEMS
+    log(f"phase 4b: gradient-sums kernel (K3) vs plain at M={M} W={W} n_rows={R}, Zipf touches")
+    sidx_np, wg_np = zipf_touches(rng, M, R, W)
+    sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
+    runs = torch.unique_consecutive(sidx[sidx < R], return_counts=True)[1]
+    log(f"  {runs.numel()} distinct rows, hottest row {int(runs.max())} touches, "
+        f"{int((sidx >= R).sum())} out-of-range touches")
+    worst = check_grad_sums(torch, gs, sidx, wg, R, "Zipf")
+    for what, s in (("every row out of range", torch.full_like(sidx, 2**30)),
+                    ("no touches", sidx[:0])):
+        out = gs.sorted_grad_sums(s, wg[: s.shape[0]], R, "default")
+        check(out.shape == (R, 2 * W) and not bool(out.any()), f"K3: {what} gives exact zeros")
+    k_ms = time_ms(torch, lambda: gs.sorted_grad_sums(sidx, wg, R, "default"), reps=10)
+    p_ms = time_ms(torch, lambda: gs.sorted_grad_sums_plain(sidx, wg, R, "default"), reps=5)
+    log(f"  Zipf touches: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    return worst
+
+
 def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_clusters: int = 64):
     """A copy of ``bench.py:116-149`` (``_clustered_interactions``, unsigned):
     users belong to clusters, each preferring a contiguous item range (80%
@@ -567,7 +657,24 @@ def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_cl
     return coo
 
 
-def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0) -> float:
+def tag_features(n_items: int, n_tags: int = N_TAGS, tags_per_item: int = 5, seed: int = 3):
+    """A copy of ``bench.py:152-182`` (``_tag_features``): identity + one
+    deterministic block tag per item (blocks nest inside the planted
+    cluster ranges of :func:`clustered_interactions`) + random noise tags,
+    about ``tags_per_item + 2`` entries per row."""
+    rng = np.random.RandomState(seed)
+    n_blocks = n_tags // 2
+    block = np.minimum(np.arange(n_items) * n_blocks // n_items, n_blocks - 1)
+    noise = n_blocks + rng.randint(0, n_tags - n_blocks, (n_items, tags_per_item))
+    cols = np.concatenate([block[:, None], noise], axis=1).ravel()
+    rows = np.repeat(np.arange(n_items), tags_per_item + 1)
+    tags = sp.coo_matrix(
+        (np.ones(rows.size, np.float32), (rows, cols.astype(np.int64))), shape=(n_items, n_tags)
+    ).tocsr()
+    return sp.hstack([sp.identity(n_items, dtype=np.float32, format="csr"), tags], format="csr")
+
+
+def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0, item_features=None) -> float:
     """Train AUC over a random user sample, as ``bench.py:185-208``: rows
     outside the sample are zeroed, so exactly the sampled users are ranked
     over the full catalog (through the port's own ``auc_score``)."""
@@ -578,7 +685,26 @@ def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0) -> float:
     keep[users] = 1.0
     sub = sp.diags(keep).dot(train_csr).tocsr()
     sub.eliminate_zeros()
-    return float(auc_score(model, sub, check_intersections=False).mean())
+    return float(auc_score(model, sub, item_features=item_features,
+                           check_intersections=False).mean())
+
+
+def launch_counts():
+    """Every kernel wrapper's launch counts, merged."""
+    from lightfm_tpu_torch.ops import adagrad_update, grad_sums, rank_counts, warp_fit
+
+    mods = (adagrad_update, grad_sums, rank_counts, warp_fit)
+    return mods, lambda: {k: v for m in mods for k, v in m.launches.items()}
+
+
+def counted_all(fn, *args, **kwargs):
+    """Run one path with every kernel's launch count set to 0 just before
+    it; return its result and the counts it launched."""
+    mods, read = launch_counts()
+    for m in mods:
+        m.reset_launches()
+    out = fn(*args, **kwargs)
+    return out, read()
 
 
 class Spans:
@@ -847,6 +973,320 @@ def training_path(torch, seed: int) -> dict:
     return {"launches": launches, "rows": rows}
 
 
+def hybrid_step_breakdown(spans: Spans, epoch: int) -> dict:
+    """Per-part CUDA-event times of the steps of one epoch of a traced
+    hybrid WARP fit: forward and pool scoring (step start to K3), K3 on the
+    item touches, the aggregated positive phase (transposed thin walk, the
+    two fat-tier GEMMs, dense table move), the pool scatter plus the
+    aggregated pool phase, and the user update (gradient permute + K1)."""
+    epochs, cur = [], None
+    for rec in spans.records:
+        if rec["label"] == "epoch":
+            cur = {"shuffle": None, "steps": []}
+            epochs.append(cur)
+        elif rec["label"] == "shuffle":
+            cur["shuffle"] = rec
+        elif rec["label"] == "step":
+            cur["steps"].append([rec])
+        else:
+            cur["steps"][-1].append(rec)
+    ep = epochs[epoch]
+
+    def ms(a, b):
+        return a.elapsed_time(b)
+
+    parts = []
+    for recs in ep["steps"]:
+        step = recs[0]
+        by = {}
+        for r in recs[1:]:
+            by.setdefault(r["label"], []).append(r)
+        (k3,), (agg_p, agg_n), (k1,) = by["k3"], by["agg"], by["k1"]
+        fat = [ms(r["start"], r["stop"]) for r in by["fat"]]
+        parts.append({
+            "forward and pool scoring": ms(step["start"], k3["start"]),
+            "K3 items": ms(k3["start"], k3["stop"]),
+            "aggregated positive phase": ms(agg_p["start"], agg_p["stop"]),
+            "of it fat GEMMs": sum(fat[:2]),
+            "pool scatter + aggregated pool phase": ms(agg_p["stop"], agg_n["stop"]),
+            "of it fat GEMMs (pool)": sum(fat[2:]),
+            "user update (permute + K1)": ms(agg_n["stop"], step["stop"]),
+            "of it K1 users": ms(k1["start"], k1["stop"]),
+            "whole step": ms(step["start"], step["stop"]),
+        })
+    names = list(parts[0])
+    return {
+        "shuffle_ms": ms(ep["shuffle"]["start"], ep["shuffle"]["stop"]),
+        "steps": len(parts),
+        "step_1": parts[1],
+        "mean_over_steps": {n: float(np.mean([p[n] for p in parts])) for n in names},
+    }
+
+
+def hybrid_path(torch, seed: int) -> dict:
+    """Phase 6: ``LightFM.fit(..., item_features=tags)`` at the warp-hybrid
+    shape.  Every path runs with the launch counts set to 0 just before it;
+    returns the kernels line's numbers for K3."""
+    from lightfm_tpu_torch import LightFM, fast_warp, train
+    from lightfm_tpu_torch.ops import grad_sums as gs
+
+    t0 = time.perf_counter()
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    csr = coo.tocsr()
+    feats = tag_features(TRAIN_ITEMS)
+    log(f"phase 6: hybrid training, {TRAIN_USERS} users x {TRAIN_ITEMS} items, {coo.nnz} "
+        f"interactions, item features {feats.shape[0]} x {feats.shape[1]} "
+        f"({feats.nnz / feats.shape[0]:.2f} per row), D={D}, batch {TRAIN_BATCH} "
+        f"(data made in {time.perf_counter() - t0:.1f} s)")
+
+    def model(**kw):
+        return LightFM(**{**dict(loss="warp", no_components=D, batch_size=TRAIN_BATCH,
+                                 random_state=seed), **kw})
+
+    steps_per_epoch = -(-coo.nnz // TRAIN_BATCH)
+    spans = Spans(torch, capture_at=("step", steps_per_epoch + 1))
+    targets = [(train, "_epoch", "epoch"), (fast_warp, "shuffle_item_sorted", "shuffle"),
+               (fast_warp, "warp_pool_step", "step"), (fast_warp, "sorted_grad_sums", "k3"),
+               (fast_warp, "_aggregated_feature_update", "agg"),
+               (fast_warp, "_fat_product", "fat"), (fast_warp, "_sorted_update", "k1")]
+    m = model()
+    with spans.patch(targets):
+        torch.cuda.synchronize()
+        _, launches = counted_all(m.fit, coo, epochs=HYBRID_EPOCHS, item_features=feats)
+    torch.cuda.synchronize()
+    data = m._staged_train_data
+    steps = data.packed.shape[1] // TRAIN_BATCH
+    check(m._staged_fast == "einsum", "the hybrid fit engaged the fast path")
+    check(data.item_feats_T is not None and data.item_feats_T.fat_rows is not None,
+          f"item_feats_T staged with a fat tier of {data.item_feats_T.fat_rows.numel()} rows "
+          f"({data.item_feats_T.fat_w.dtype}, fat_w2 shared: "
+          f"{data.item_feats_T.fat_w2 is data.item_feats_T.fat_w})")
+    want = steps * HYBRID_EPOCHS
+    check(launches["sorted_grad_sums"] == want,
+          f"K3 launched {steps} steps x {HYBRID_EPOCHS} epochs = {want} times in the fit")
+    check(launches["sorted_adagrad_update"] == want, f"K1 (identity users) launched {want} times")
+    epochs = [r for r in spans.records if r["label"] == "epoch"]
+    epoch_ms = [r["start"].elapsed_time(r["stop"]) for r in epochs]
+    steady_ms = float(np.median(epoch_ms[1:]))
+    log(f"  hybrid fit: {m.fit_stats_.wall_s:.3f} s wall (staging and the transposed build "
+        f"included), epoch ms (CUDA events): {json.dumps(epoch_ms)}; host ms to enqueue each "
+        f"epoch: {json.dumps([r['host_ms'] for r in epochs])}")
+    log(f"  steady hybrid epoch {steady_ms:.3f} ms (median of epochs 2-{HYBRID_EPOCHS}) = "
+        f"{coo.nnz / (steady_ms / 1e3):.1f} examples/s")
+    log("  hybrid step breakdown, epoch 2 (ms): " + json.dumps(hybrid_step_breakdown(spans, 1)))
+    auc, guard_launches = counted_all(auc_sample, m, csr, item_features=feats)
+    log(f"  hybrid train-sample AUC over 2,048 users after {HYBRID_EPOCHS} epochs: {auc:.4f}")
+    check(auc >= HYBRID_AUC_FLOOR, f"hybrid train-sample AUC {auc:.4f} >= {HYBRID_AUC_FLOOR}")
+    # The sampled users' rows hold more than COUNT_T_LIMIT = 32 positives, so
+    # the guard's predict_rank takes the blocked matmul path, not the rank
+    # kernels (the JAX package's dispatch, ops/ranking.py).  Serving the
+    # hybrid model through K2: one positive per sampled user held out (T = 1),
+    # its other positives excluded, ranked through the item features.
+    binary = (csr != 0).astype(np.float32)
+    eligible = np.flatnonzero(np.diff(binary.indptr) >= 2)
+    users = np.random.RandomState(seed + 5).choice(eligible, min(4096, eligible.size), replace=False)
+    held = binary.indices[binary.indptr[users]]
+    test = sp.csr_matrix((np.ones(users.size, np.float32), (users, held)), shape=binary.shape)
+    rest = (binary - test).tocsr()
+    rest.eliminate_zeros()
+    ranks, serve_launches = counted_all(m.predict_rank, test, train_interactions=rest,
+                                        item_features=feats, check_intersections=False)
+    check(serve_launches["rank_counts"] > 0 and serve_launches["pair_scores"] > 0,
+          "predict_rank with item features went through both rank kernels")
+    item_reps = np.asarray(feats.dot(m._state.item_table.cpu().numpy()))
+    # The trained catalog's scores lie dense (median gap near the 1e-5 *
+    # max|score| tie band), so many ranks are near ties; the bands stay narrow.
+    n_exact, n_near, widest = check_ranks_float64(
+        ranks, test, rest, m._state.user_table.cpu().numpy(), item_reps, users[:256])
+    check(widest <= TRAIN_ITEMS // 100,
+          f"256 users' hybrid ranks equal float64 numpy ({n_exact} exact, {n_near} near ties "
+          f"in bounds, widest band {widest} ranks)")
+    del item_reps
+    check(bool(torch.isfinite(m._state.item_table).all()
+               and torch.isfinite(m._state.user_table).all()), "hybrid tables are finite")
+    k3_args = [r["args"] for r in spans.records if r["label"] == "k3" and r["args"] is not None][0]
+    spans.records = []
+    profiled_epoch(torch, train, m, seed)
+
+    path_launches = {f"fit warp-hybrid x{HYBRID_EPOCHS}": launches,
+                     "auc guard (predict_rank, item features)": guard_launches,
+                     "predict_rank T=1 (item features)": serve_launches}
+    runs = []
+    for _ in range(2):
+        r, path_launches["fit warp-hybrid x1 (determinism)"] = counted_all(
+            model(random_state=seed + 7).fit, coo, epochs=1, item_features=feats
+        )
+        runs.append(r._state)
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          "two same-seed 1-epoch hybrid fits give bitwise-equal state")
+    del runs
+    r, path_launches["fit bpr-hybrid x1"] = counted_all(
+        model(loss="bpr").fit, coo, epochs=1, item_features=feats
+    )
+    log(f"  bpr-hybrid: 1 epoch {r.fit_stats_.wall_s:.3f} s wall (host prep included)")
+    check(r._staged_fast == "einsum" and path_launches["fit bpr-hybrid x1"]["sorted_grad_sums"] == steps,
+          f"bpr-hybrid: fast path, K3 launched {steps} times")
+    check(bool(torch.isfinite(r._state.item_table).all()), "bpr-hybrid: tables are finite")
+    del r
+    log("  kernel launches by path (each counted from 0): " + json.dumps(path_launches))
+
+    # K3 on the real item touches of epoch 2, step 2.
+    sidx, wg, n_rows, _ = k3_args
+    sidx, wg = sidx.contiguous(), wg.contiguous()
+    M, W = wg.shape
+    err = check_grad_sums(torch, gs, sidx, wg, n_rows, "on the step's item touches")
+    k_ms = time_ms(torch, lambda: gs.sorted_grad_sums(sidx, wg, n_rows, "default"), reps=20)
+    p_ms = time_ms(torch, lambda: gs.sorted_grad_sums_plain(sidx, wg, n_rows, "default"), reps=10)
+    both = torch.cat([wg, wg * wg], dim=1)
+    rows = sidx.long()
+
+    def library():
+        torch.zeros((n_rows, 2 * W), dtype=torch.float32, device=wg.device).index_add_(0, rows, both)
+
+    lib_ms = time_ms(torch, library, reps=20)
+    bound = (4 * M * (W + 1) + 8 * W * n_rows) / HBM_BYTES_PER_S * 1e3
+    runs_ = torch.unique_consecutive(sidx, return_counts=True)[1]
+    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
+           "max_abs_err": err, "M": M, "W": W, "n_rows": n_rows,
+           "distinct": int(runs_.numel()), "hottest": int(runs_.max())}
+    log("  K3 on the real step touches (ms, default precision): " + json.dumps(row))
+    del m, data
+    torch.cuda.empty_cache()
+    return {"launches": launches, "row": row}
+
+
+def planted_ml100k(seed: int):
+    """A planted implicit set of the synthetic MovieLens 100k's size, after
+    ``lightfm_tpu/datasets/synthetic.py:64-107``: rank-8 factors, a Zipf
+    popularity prior, lognormal user degrees (mean ~106, clipped at 20 and
+    737), items chosen by Gumbel top-k, ratings by within-user quantile
+    through ML-100k's histogram; kept: the rating-5 cells (~19k)."""
+    rng = np.random.RandomState(seed)
+    U = rng.randn(FIT_USERS, 8).astype(np.float32) / np.sqrt(8)
+    V = rng.randn(FIT_ITEMS, 8).astype(np.float32) / np.sqrt(8)
+    pop = 1.0 / np.arange(1, FIT_ITEMS + 1) ** 0.8
+    rng.shuffle(pop)
+    counts = np.clip(rng.lognormal(np.log(0.61 * 106), 0.95, FIT_USERS), 20, 737).astype(np.int64)
+    scores = U @ V.T
+    keys = 4.5 * scores + np.log(pop)[None, :] + rng.gumbel(size=scores.shape)
+    order = np.argsort(-keys, axis=1)
+    rows, cols = [], []
+    for u in range(FIT_USERS):
+        chosen = order[u, : counts[u]]
+        q = (np.argsort(np.argsort(scores[u, chosen])) + 0.5) / len(chosen)
+        five = chosen[q >= 0.7880]  # the top 21.2%: rating 5
+        rows.append(np.full(len(five), u))
+        cols.append(five)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    return sp.csr_matrix((np.ones(len(rows), np.float32), (rows, cols)),
+                         shape=(FIT_USERS, FIT_ITEMS))
+
+
+def fit_quality(ut, it, train):
+    """Train AUC and precision@5 of a state over every user's positives
+    (numpy, from the tables' embeddings and biases)."""
+    u, v = ut.detach().cpu().numpy().astype(np.float64), it.detach().cpu().numpy().astype(np.float64)
+    scores = u[:, :-1] @ v[:, :-1].T + u[:, -1:] + v[None, :, -1]
+    aucs, p5 = [], []
+    for uu in range(train.shape[0]):
+        pos = train.indices[train.indptr[uu]: train.indptr[uu + 1]]
+        if not len(pos):
+            continue
+        s = scores[uu]
+        mask = np.ones(train.shape[1], bool)
+        mask[pos] = False
+        aucs.append((s[pos][:, None] > s[mask][None, :]).mean())
+        p5.append(np.isin(np.argsort(-s)[:5], pos).mean())
+    return float(np.mean(aucs)), float(np.mean(p5))
+
+
+def warp_fit_path(torch, seed: int) -> dict:
+    """Phase 7: the whole-fit WARP kernel (K5) at the quickstart's size:
+    against its plain version after a few steps, then a whole 30-epoch fit
+    in one launch, held to the plain version's quality."""
+    from lightfm_tpu_torch.ops import warp_fit as wf
+    from lightfm_tpu_torch.sparse import pad_csr_sorted
+    from lightfm_tpu_torch.state import init_state
+    from lightfm_tpu_torch.train import choose_batch_size
+
+    dev = torch.device(DEVICE)
+    train = planted_ml100k(seed)
+    coo = train.tocoo()
+    n = coo.nnz
+    B = choose_batch_size(n, None)
+    n_pad = -(-n // B) * B
+    packed = np.zeros((8, n_pad), np.int32)
+    packed[0, :n], packed[1, :n] = coo.row, coo.col
+    packed[2, :n] = packed[3, :n] = np.float32(1.0).view(np.int32)
+    packed[4, :n] = 1
+    rng = np.random.RandomState(seed + 9)
+    batches = np.concatenate([
+        packed[:, rng.permutation(n_pad)].reshape(8, n_pad // B, B).transpose(1, 0, 2)
+        for _ in range(FIT_EPOCHS)
+    ])
+    S = batches.shape[0]
+    negs = rng.randint(0, FIT_ITEMS, (S, 1, FIT_K * B)).astype(np.int32)
+    positives = pad_csr_sorted(train, pad_multiple=8, device=dev).idx
+    state = init_state(FIT_D, FIT_ITEMS, FIT_USERS, np.random.RandomState(seed), adagrad=True,
+                       device=dev)
+    tables = (state.user_table, state.user_acc, state.item_table, state.item_acc)
+    batches_t = torch.from_numpy(np.ascontiguousarray(batches)).to(dev)
+    negs_t = torch.from_numpy(negs).to(dev)
+    kw = dict(n_items=FIT_ITEMS, max_sampled=FIT_K, learning_rate=LR)
+    W = tables[0].shape[1]
+    log(f"phase 7: whole-fit WARP kernel (K5), {FIT_USERS} users x {FIT_ITEMS} items, "
+        f"{n} positives, D={FIT_D} (W={W}), B={B}, K={FIT_K}, {FIT_EPOCHS} epochs = {S} steps, "
+        f"positives width {positives.shape[1]}")
+
+    names = ("user_table", "user_acc", "item_table", "item_acc")
+    few = 4
+    got = wf.warp_fit_fused(*tables, batches_t[:few], negs_t[:few], positives, **kw)
+    want = wf.warp_fit_fused_plain(*tables, batches_t[:few], negs_t[:few], positives, **kw)
+    err = 0.0
+    for name, g, w in zip(names, got, want):
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        check(bool((d <= 1e-5 + 1e-5 * w.abs()).all()),
+              f"K5 after {few} steps: {name} equals plain to 1e-5 + 1e-5|x| (max |d| {float(d.max()):.3g})")
+
+    (k_state, launches) = counted_all(wf.warp_fit_fused, *tables, batches_t, negs_t, positives, **kw)
+    check(launches["warp_fit_fused"] == 1, f"the whole {S}-step fit is one K5 launch")
+    again = wf.warp_fit_fused(*tables, batches_t, negs_t, positives, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(k_state, again)), "two K5 fits are bitwise equal")
+    p_state = wf.warp_fit_fused_plain(*tables, batches_t, negs_t, positives, **kw)
+    k_auc, k_p5 = fit_quality(k_state[0], k_state[2], train)
+    p_auc, p_p5 = fit_quality(p_state[0], p_state[2], train)
+    i_auc, _ = fit_quality(tables[0], tables[2], train)
+    log(f"  train AUC / p@5 after {FIT_EPOCHS} epochs: kernel {k_auc:.4f} / {k_p5:.4f}, "
+        f"plain {p_auc:.4f} / {p_p5:.4f} (initial AUC {i_auc:.4f})")
+    check(all(bool(torch.isfinite(x).all()) for x in k_state)
+          and bool((k_state[1] >= 1).all() and (k_state[3] >= 1).all()),
+          "K5 state is finite and every accumulator >= 1")
+    check(abs(k_auc - p_auc) <= 0.01 and abs(k_p5 - p_p5) <= 0.03,
+          "K5 fit quality within 0.01 AUC and 0.03 p@5 of the plain version's")
+    check(k_auc >= i_auc + 0.1, "the K5 fit learned (AUC up by >= 0.1)")
+
+    k_ms = time_ms(torch, lambda: wf.warp_fit_fused(*tables, batches_t, negs_t, positives, **kw),
+                   reps=3)
+    p_ms = time_ms(torch, lambda: wf.warp_fit_fused_plain(*tables, batches_t, negs_t, positives,
+                                                          **kw), reps=2)
+    U, I, P = FIT_USERS, FIT_ITEMS, positives.shape[1]
+    n_bytes = 4 * (2 * 2 * (U + I) * W + S * 8 * B + S * FIT_K * B + U * P)
+    # Every candidate scored: the most the early-ending scan could need, and
+    # still under the bytes, so the bound is the bytes whatever the data.  The
+    # S steps are sequential (each reads the tables the last one wrote); the
+    # bound does not charge that chain.
+    n_ops = S * B * (FIT_K + 1) * 2 * W
+    peak = fp32_peak_flops(torch)
+    bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak) * 1e3
+    row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+           "bound_by": "operations" if n_ops / peak > n_bytes / HBM_BYTES_PER_S else "bytes",
+           "max_abs_err": err, "launches": launches["warp_fit_fused"], "steps": S,
+           "ms_per_step": k_ms / S}
+    log("  K5 whole fit (ms): " + json.dumps(row))
+    return row
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -862,7 +1302,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("rank_counts", "adagrad_update"):
+    for name in ("rank_counts", "adagrad_update", "grad_sums", "warp_fit"):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -876,7 +1316,10 @@ def main() -> int:
         check(rec["launches"] > 0, f"{rec['name']} launched on the serving path")
 
     zipf_err = update_kernel_checks(torch, args.seed)
+    k3_zipf_err = grad_sums_checks(torch, args.seed)
     trained = training_path(torch, args.seed)
+    hybrid = hybrid_path(torch, args.seed)
+    k5 = warp_fit_path(torch, args.seed)
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
     k1_launches = trained["launches"]["sorted_adagrad_update"]
     check(k1_launches > 0, "sorted_adagrad_update launched on the training path")
@@ -897,6 +1340,28 @@ def main() -> int:
             "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
             "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+        },
+    ]
+    k3 = hybrid["row"]
+    check(hybrid["launches"]["sorted_grad_sums"] > 0, "sorted_grad_sums launched on the hybrid path")
+    check(k5["launches"] > 0, "warp_fit_fused launched on the whole-fit path")
+    kernels += [
+        {
+            "name": "sorted_grad_sums", "route": "cuda",
+            "source": "lightfm_tpu_torch/csrc/grad_sums.cu",
+            "replaces": "lightfm_tpu/ops/pallas_update.py:365",
+            "launches": hybrid["launches"]["sorted_grad_sums"],
+            "max_abs_err": max(k3_zipf_err, k3["max_abs_err"]),
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+            "bound_by": "bytes", "library_ms": k3["library_ms"],
+        },
+        {
+            "name": "warp_fit_fused", "route": "cuda",
+            "source": "lightfm_tpu_torch/csrc/warp_fit.cu",
+            "replaces": "lightfm_tpu/ops/pallas_train.py:174",
+            "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+            "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+            "bound_by": k5["bound_by"], "library_ms": None,
         },
     ]
 

@@ -1,9 +1,9 @@
-"""Fast training path (WARP, BPR and logistic with identity features):
-pool negatives + item-sorted batches + sorted adagrad updates.
+"""Fast training path (WARP, BPR and logistic): pool negatives + item-sorted
+batches + sorted adagrad updates, with identity features or, for WARP and
+BPR, narrow feature matrices (the hybrid path).
 
-Counterpart of ``lightfm_tpu/fast_warp.py``, single device, identity
-features (the hybrid branches, ``TransposedFeats`` and the data-parallel
-mesh layout are ROADMAP.md items 2 and 7).  Per step:
+Counterpart of ``lightfm_tpu/fast_warp.py``, single device (the
+data-parallel mesh layout is ROADMAP.md item 7).  Per step:
 
 - **Pool negatives** (WARP, BPR): one pool of ``P`` item ids and ``K``
   rotations; candidate k of example b is pool slot ``(b + shift_k) mod P``,
@@ -17,6 +17,14 @@ mesh layout are ROADMAP.md items 2 and 7).  Per step:
   on a CUDA device, its plain version on the CPU.
 - **Pool-space negative updates**: violator gradients fold back to the
   ``[P, W]`` pool block, whose update is a P-row scatter.
+- **Hybrid sides** (a :class:`PaddedRows` feature matrix of at most
+  ``MAX_FAST_FEAT_NNZ`` padded entries per row): representations are
+  weighted feature sums, and the feature table moves by the aggregated
+  update -- per-entity gradient sums (kernel K3,
+  :func:`lightfm_tpu_torch.ops.grad_sums.sorted_grad_sums`, for the sorted
+  positives and users), a walk of the TRANSPOSED feature lists
+  (:class:`TransposedFeats`) and a dense table move -- or, when no
+  transposed structure is staged, by expanded per-(row, feature) scatters.
 
 Random draws are INPUTS: :func:`draw_epoch` draws an epoch's Feistel round
 keys (or per-example sort keys), pool ids and shifts from a
@@ -30,8 +38,10 @@ return it.  ``train.run_epochs`` hands them a copy.
 Numerics: ``fast_precision="highest"`` is IEEE fp32 with TF32 off;
 ``"default"`` rounds the operands of every contraction the JAX package runs
 with ``precision=prec`` (candidate scores, the one-hot selection, the pool
-fold, K1's sums) to bf16, nearest even, and sums in fp32.  A bf16 x bf16
-product is exact in fp32, so the CPU and the card agree.  The scatters sum
+fold, K1's and K3's sums, the transposed feature walk) to bf16, nearest
+even, and sums in fp32.  A bf16 x bf16 product is exact in fp32, so the CPU
+and the card agree.  The hybrid forward's feature sums have no precision
+argument in the JAX package and stay IEEE fp32.  The scatters sum
 duplicates in a fixed order (:func:`_scatter_add`), so two same-seed fits
 are bitwise equal.
 """
@@ -48,13 +58,15 @@ import torch
 from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
 from lightfm_tpu_torch.losses import Batch
 from lightfm_tpu_torch.ops.adagrad_update import sorted_adagrad_update
+from lightfm_tpu_torch.ops.grad_sums import sorted_grad_sums
 from lightfm_tpu_torch.ops.representation import (
+    batch_representation,
     ieee_fp32,
     round_to_bf16,
     score_pairs,
     with_unit_bias,
 )
-from lightfm_tpu_torch.sparse import IdentityRows, in_positives_slots
+from lightfm_tpu_torch.sparse import IdentityRows, PaddedRows, in_positives_slots
 from lightfm_tpu_torch.state import ModelState, table_width
 
 # Negative-pool size per step (at B <= POOL_SIZE the pool degenerates to
@@ -64,6 +76,18 @@ POOL_SIZE = 16384
 # Below this item-table footprint (rows * padded width) the generic path is
 # the one that pays off; it also keeps small test datasets off this path.
 MIN_TABLE_ELEMS = 1 << 19
+
+# Hybrid (feature-matrix) fast path: PaddedRows up to this padded width are
+# eligible for the pairwise pool path (the genre/tag case); wider or
+# chunked feature rows belong on the generic path.
+MAX_FAST_FEAT_NNZ = 16
+
+
+def _feats_eligible(feats) -> bool:
+    """Feature types the pairwise fast path handles natively."""
+    if isinstance(feats, IdentityRows):
+        return True
+    return isinstance(feats, PaddedRows) and feats.max_nnz <= MAX_FAST_FEAT_NNZ
 
 # The LIGHTFM_TPU_* env vars OVERRIDE the per-model fast-path knobs at fit
 # time (process-wide A/B), with the JAX package's names and parsing.
@@ -139,9 +163,10 @@ def _pool_mode(hp: Hyperparams) -> str:
 def fast_warp_eligible(hp: Hyperparams, data, mesh, shuffle: str, batch_size: int):
     """Static gate of the fast path (``lightfm_tpu/fast_warp.py:208-281``).
 
-    Returns ``False`` or the pool mode ``"einsum"``.  A mesh and explicit
-    feature matrices are "not eligible" here: their fast-path layouts are
-    not ported yet.
+    Returns ``False`` or the pool mode ``"einsum"``.  A mesh is "not
+    eligible" here: its data-parallel layout is not ported yet.  WARP and
+    BPR take feature matrices up to ``MAX_FAST_FEAT_NNZ`` padded entries per
+    row; logistic takes identity features only.
     """
     if not _enabled(hp, data.packed.device):
         return False
@@ -153,15 +178,21 @@ def fast_warp_eligible(hp: Hyperparams, data, mesh, shuffle: str, batch_size: in
         return False
     if shuffle != "global" or mesh is not None:
         return False
-    if not isinstance(data.user_feats, IdentityRows):
-        return False
-    if not isinstance(data.item_feats, IdentityRows):
+    if hp.loss == "logistic":
+        # Logistic's fast path is only the sorted update, over identity touches.
+        if not isinstance(data.user_feats, IdentityRows):
+            return False
+        if not isinstance(data.item_feats, IdentityRows):
+            return False
+    elif not (_feats_eligible(data.user_feats) and _feats_eligible(data.item_feats)):
         return False
     if hp.loss != "logistic" and data.positives is None:
         return False
     # Pool-fold needs B to be a whole number of pools.
     if batch_size > POOL_SIZE and batch_size % POOL_SIZE != 0:
         return False
+    # Item-table rows: the identity's row count, or the feature count of an
+    # explicit feature matrix.
     if data.item_feats.n_cols * table_width(hp.no_components) < MIN_TABLE_ELEMS:
         return False
     return _pool_mode(hp)
@@ -382,18 +413,194 @@ def _scatter_update(table, acc, rows, g, g2, lr: float):
     _scatter_add(acc, rows, g2)
 
 
+def _feature_update(table, acc, feats: PaddedRows, rows, g, lr: float, g2=None):
+    """In-place adagrad update through an explicit feature matrix
+    (``lightfm_tpu/fast_warp.py:437-461``): per-row gradients ``g`` expand
+    to per-(row, feature) touches ``w_f * g`` and scatter-add
+    (``update_features``, template:392-451, batched), each touch reading the
+    PRE-call accumulator; zero-weight padding slots are exact no-ops.
+    ``g2`` overrides the squared-gradient stream for callers whose ``g`` is
+    already a fold of per-example terms (the pool negatives)."""
+    rows = rows.long()
+    idx = feats.idx[rows]  # [B, P]
+    w = feats.wts[rows]
+    W = g.shape[-1]
+    fidx = idx.reshape(-1).long()
+    fwg = (w[..., None] * g[:, None, :]).reshape(-1, W)
+    if g2 is None:
+        fwg2 = fwg * fwg
+    else:
+        fwg2 = ((w * w)[..., None] * g2[:, None, :]).reshape(-1, W)
+    lrl = lr * torch.rsqrt(acc[fidx])
+    _scatter_add(table, fidx, -(lrl * fwg))
+    _scatter_add(acc, fidx, fwg2)
+
+
+class TransposedFeats(NamedTuple):
+    """Transposed feature lists split by row width, for the aggregated
+    hybrid update (``LightFM._transposed_features`` builds it at staging).
+
+    ``thin``: :class:`PaddedRows` over the narrow rows (identity columns
+    transpose to width-1 rows), walked with small gathers.
+    ``fat_rows``/``fat_w``/``fat_w2``: the wide rows (tag/genre columns
+    list hundreds of entities) as DENSE ``[M, n_entities]`` weight
+    matrices, walked by one matrix product against ``G``.  ``fat_w2`` holds
+    the squared weights; when they equal the weights (binary weights) it is
+    the SAME tensor as ``fat_w``.  Stored bf16 under
+    ``fast_precision="default"`` when the data round-trips exactly.
+    """
+
+    thin: object  # PaddedRows (or ChunkedRows)
+    fat_rows: Optional[torch.Tensor]  # int32 [M] feature ids of the fat rows
+    fat_w: Optional[torch.Tensor]  # [M, n_entities] weights (f32 or bf16)
+    fat_w2: Optional[torch.Tensor]  # [M, n_entities] squared weights
+
+
+def _fat_product(w: torch.Tensor, g: torch.Tensor, precision: str) -> torch.Tensor:
+    """f32 ``w @ g`` of the fat tier.  bf16-stored ``w`` is upcast (exact)
+    so the product accumulates and returns f32 as the JAX package's
+    ``preferred_element_type=f32`` dot does; at ``"default"`` both operands
+    are bf16-rounded first, so the f32 product with TF32 off is exact per
+    term."""
+    if precision == "default":
+        g = round_to_bf16(g)
+        if w.dtype != torch.bfloat16:
+            w = round_to_bf16(w)
+    w = w.float()
+    with ieee_fp32(g):
+        return w @ g
+
+
+def _transposed_feature_sums(feats_T, G: torch.Tensor, block: int = 8192,
+                             precision: str = "highest") -> torch.Tensor:
+    """Per-feature weighted sums of per-entity gradient rows
+    (``lightfm_tpu/fast_warp.py:487-581``).
+
+    ``G`` is the ``[n_entities, 2W]`` stacked ``[G1 | G2]`` block of
+    per-entity gradient sums; ``feats_T`` is the TRANSPOSED feature
+    structure (row f lists the entities carrying feature f with weights
+    ``w``).  Returns ``[n_features, 2W]`` with ``S1[f] = sum_e w * G1[e]``
+    and ``S2[f] = sum_e w^2 * G2[e]``: the per-feature sums of the expanded
+    touch set of :func:`_feature_update`, with no scatter but the fat
+    tier's add at its (unique) rows.  The thin walk runs in row blocks so
+    each ``[block, width, 2W]`` gather stays inside 2^25 elements.
+    """
+    W2 = G.shape[1]
+    W = W2 // 2
+
+    def fold(idx, w):
+        emb = G[idx.long()]  # [..., P, 2W]
+        s1 = _einsum("...p,...pd->...d", w, emb[..., :W], precision)
+        s2 = _einsum("...p,...pd->...d", w * w, emb[..., W:], precision)
+        return torch.cat([s1, s2], dim=-1)
+
+    fat = None
+    if isinstance(feats_T, TransposedFeats):
+        fat = feats_T
+        feats_T = feats_T.thin
+    if isinstance(feats_T, PaddedRows):
+        base_idx, base_wts = feats_T.idx, feats_T.wts
+        over = None
+    else:  # ChunkedRows
+        base_idx, base_wts = feats_T.base.idx, feats_T.base.wts
+        over = feats_T
+
+    budget_elems = 1 << 25
+    F = base_idx.shape[0]
+    per_row = max(1, base_idx.shape[1] * W2)
+    block = max(8, min(block, budget_elems // per_row))
+    S = torch.cat(
+        [fold(base_idx[r0:r0 + block], base_wts[r0:r0 + block]) for r0 in range(0, F, block)]
+        or [G.new_zeros((0, W2))]
+    )
+
+    if over is not None:
+        # Overflow tier: fold each chunk over its M+1 overflow records
+        # (record M is all-zero padding) and route back per feature through
+        # over_slot.  Wide chunks are split column-wise so each fold's
+        # gather stays inside the budget (the splits only add summands).
+        oi, ow = over.over_idx, over.over_wts
+        n_ch, M1, C = oi.shape
+        sub = C
+        while sub > 8 and M1 * sub * W2 > budget_elems:
+            sub //= 2
+        if sub < C:
+            k = C // sub
+            oi = oi.reshape(n_ch, M1, k, sub).transpose(1, 2).reshape(n_ch * k, M1, sub)
+            ow = ow.reshape(n_ch, M1, k, sub).transpose(1, 2).reshape(n_ch * k, M1, sub)
+        slot = over.over_slot.long()
+        for idx_c, wts_c in zip(oi, ow):
+            S = S + fold(idx_c, wts_c)[slot]
+
+    if fat is not None and fat.fat_rows is not None:
+        # Fat tier: S1 += W @ G1, S2 += W^2 @ G2 as two f32 matrix products
+        # (the JAX package leaves these to XLA's dot; a library matmul here).
+        s1 = _fat_product(fat.fat_w, G[:, :W], precision)
+        s2 = _fat_product(fat.fat_w2, G[:, W:], precision)
+        S.index_add_(0, fat.fat_rows.long(), torch.cat([s1, s2], dim=1))  # rows are unique
+    return S
+
+
+def _aggregated_feature_update(table, acc, feats_T, G, lr: float, precision: str = "highest"):
+    """Scatter-free in-place adagrad update through an explicit feature
+    matrix (``lightfm_tpu/fast_warp.py:584-603``): the exact reformulation of
+    one expanded-touch :func:`_feature_update` call.  Per-feature sums come
+    from the transposed walk, then the table and accumulator move densely;
+    untouched features have zero sums (exact no-ops), and every feature
+    reads this call's pre-call accumulator."""
+    W = table.shape[1]
+    S = _transposed_feature_sums(feats_T, G, precision=precision)
+    lrl = lr * torch.rsqrt(acc)
+    table.sub_(lrl * S[:, :W])
+    acc.add_(S[:, W:])
+
+
 def _apply_pool_updates(state: ModelState, uid, pos_ids, gi, gu, suid, sigma,
                         pool_ids, gp, gp2, lr: float, user_pallas: bool,
-                        precision: str) -> ModelState:
-    """The identity branches of ``lightfm_tpu/fast_warp.py:651-777``.
+                        precision: str, user_feats=None, item_feats=None,
+                        user_feats_T=None, item_feats_T=None) -> ModelState:
+    """``lightfm_tpu/fast_warp.py:651-777`` (in place).
 
-    Order within the step: positive items (K1, pre-step accumulator), pool
-    negatives (P-row scatter, post-positive accumulator), users (K1 over the
-    user-sorted ids, or a B-row scatter; pre-step accumulator).
+    Order within the step: positive items (pre-step accumulator), pool
+    negatives (post-positive accumulator), users (pre-step accumulator).
+    Identity sides take K1 over the sorted ids (or, for users with
+    ``user_pallas=False``, a B-row scatter) and a P-row pool scatter.  A
+    feature-matrix side with a staged transposed structure takes the
+    aggregated update -- per-entity sums by K3 over the sorted positives
+    (items) or the user-sorted ids (users), the pool's by a scatter into
+    zeros -- and otherwise the expanded-touch scatter.  Positives and pool
+    stay two phases, so the pool reads the accumulator as the positives
+    left it.
     """
-    _sorted_update(state.item_table, state.item_acc, pos_ids, -gi, lr, precision)
-    _scatter_update(state.item_table, state.item_acc, pool_ids, gp, gp2, lr)
-    if user_pallas:
+    item_identity = item_feats is None or isinstance(item_feats, IdentityRows)
+    user_identity = user_feats is None or isinstance(user_feats, IdentityRows)
+    W = gi.shape[1]
+
+    if item_identity:
+        _sorted_update(state.item_table, state.item_acc, pos_ids, -gi, lr, precision)
+        _scatter_update(state.item_table, state.item_acc, pool_ids, gp, gp2, lr)
+    elif item_feats_T is not None:
+        n_i = item_feats.n_rows
+        Gp = sorted_grad_sums(pos_ids, (-gi).contiguous(), n_i, precision)
+        _aggregated_feature_update(state.item_table, state.item_acc, item_feats_T, Gp, lr,
+                                   precision)
+        Gn = torch.zeros((n_i, 2 * W), dtype=torch.float32, device=gi.device)
+        _scatter_add(Gn, pool_ids.long(), torch.cat([gp, gp2], dim=1))
+        _aggregated_feature_update(state.item_table, state.item_acc, item_feats_T, Gn, lr,
+                                   precision)
+    else:
+        _feature_update(state.item_table, state.item_acc, item_feats, pos_ids, -gi, lr)
+        _feature_update(state.item_table, state.item_acc, item_feats, pool_ids, gp, lr, g2=gp2)
+
+    if not user_identity:
+        if user_feats_T is not None:
+            Gu = sorted_grad_sums(suid, gu[sigma.long()].contiguous(), user_feats.n_rows,
+                                  precision)
+            _aggregated_feature_update(state.user_table, state.user_acc, user_feats_T, Gu, lr,
+                                       precision)
+        else:
+            _feature_update(state.user_table, state.user_acc, user_feats, uid, gu, lr)
+    elif user_pallas:
         _sorted_update(state.user_table, state.user_acc, suid, gu[sigma.long()], lr, precision)
     else:
         _scatter_update(state.user_table, state.user_acc, uid, gu, gu * gu, lr)
@@ -407,13 +614,16 @@ def _apply_pool_updates(state: ModelState, uid, pos_ids, gi, gu, suid, sigma,
 
 def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
                    hp: Hyperparams, pool_ids, shifts, *, n_items: int,
-                   user_pallas: bool) -> ModelState:
+                   user_pallas: bool, user_feats=None, item_feats=None,
+                   user_feats_T=None, item_feats_T=None) -> ModelState:
     """One WARP step over an ITEM-SORTED batch (in place).
 
     Per example: the first margin violator that is not a positive among K
     pool candidates, rank weight ``log(floor((n_items-1)/draws))``, loss
     clipped at MAX_LOSS (``_lightfm_fast.pyx.template:784-912``).
-    ``pool_ids`` [P] and ``shifts`` [K] are this step's draws.
+    ``pool_ids`` [P] and ``shifts`` [K] are this step's draws.  With a
+    feature matrix on a side, its representations are the weighted feature
+    sums (``compute_representation``, template:287-317).
     """
     uid, pos_ids = batch.user_ids, batch.item_ids
     B = uid.shape[0]
@@ -423,10 +633,10 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     W = state.item_table.shape[1]
     prec = hp.fast_precision
 
-    u = state.user_table[uid.long()]  # [B, W]
-    prep = state.item_table[pos_ids.long()]
+    u = batch_representation(state.user_table, user_feats, uid)  # [B, W]
+    prep = batch_representation(state.item_table, item_feats, pos_ids)
     pool_ids = pool_ids.to(torch.int32)
-    pool_reps = state.item_table[pool_ids.long()]
+    pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
     rids = _roll_ids(pool_ids, shifts, K)
 
     u1 = with_unit_bias(u)
@@ -459,13 +669,15 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     gu = lossm[:, None] * with_unit_bias(nrep - prep)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
-        hp.learning_rate, user_pallas, prec,
+        hp.learning_rate, user_pallas, prec, user_feats=user_feats,
+        item_feats=item_feats, user_feats_T=user_feats_T, item_feats_T=item_feats_T,
     )
 
 
 def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
                   suid, sigma, hp: Hyperparams, pool_pos, shifts, *,
-                  user_pallas: bool) -> ModelState:
+                  user_pallas: bool, user_feats=None, item_feats=None,
+                  user_feats_T=None, item_feats_T=None) -> ModelState:
     """One BPR step over an ITEM-SORTED batch (in place).
 
     The negative is the first of ``bpr_tries`` pool candidates that is not
@@ -480,10 +692,10 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
     W = state.item_table.shape[1]
     prec = hp.fast_precision
 
-    u = state.user_table[uid.long()]
-    prep = state.item_table[pos_ids.long()]
+    u = batch_representation(state.user_table, user_feats, uid)
+    prep = batch_representation(state.item_table, item_feats, pos_ids)
     pool_ids = train_items[pool_pos.long()]
-    pool_reps = state.item_table[pool_ids.long()]
+    pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
     rids = _roll_ids(pool_ids, shifts, T)
     cand_ids = rids[:, None, :].expand(T, Q, P).reshape(T, B)
 
@@ -509,7 +721,8 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
     gu = lossm[:, None] * with_unit_bias(nrep - prep)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
-        hp.learning_rate, user_pallas, prec,
+        hp.learning_rate, user_pallas, prec, user_feats=user_feats,
+        item_feats=item_feats, user_feats_T=user_feats_T, item_feats_T=item_feats_T,
     )
 
 
@@ -540,13 +753,15 @@ def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
 def fast_epoch(state: ModelState, data, draws: EpochDraws, hp: Hyperparams,
                batch_size: int) -> ModelState:
     """One fast-path epoch (in place): item-sorted shuffle, then one step
-    per batch with that batch's draws."""
+    per batch with that batch's draws and the staged feature structures."""
     n_pad = data.packed.shape[1]
     n_batches = n_pad // batch_size
     n_items = data.item_feats.n_rows
     shuffled, suid, sigma = shuffle_item_sorted(
         data.packed, draws.perm, n_batches, batch_size, hp.shuffle_mode
     )
+    feats = dict(user_feats=data.user_feats, item_feats=data.item_feats,
+                 user_feats_T=data.user_feats_T, item_feats_T=data.item_feats_T)
     for b in range(n_batches):
         batch = _unpack_batch5(shuffled[b])
         if hp.loss == "logistic":
@@ -554,12 +769,12 @@ def fast_epoch(state: ModelState, data, draws: EpochDraws, hp: Hyperparams,
         elif hp.loss == "bpr":
             bpr_pool_step(
                 state, batch, data.positives, data.train_items, suid[b], sigma[b],
-                hp, draws.pool[b], draws.shifts[b], user_pallas=hp.user_pallas,
+                hp, draws.pool[b], draws.shifts[b], user_pallas=hp.user_pallas, **feats,
             )
         else:
             warp_pool_step(
                 state, batch, data.positives, suid[b], sigma[b], hp,
                 draws.pool[b], draws.shifts[b], n_items=n_items,
-                user_pallas=hp.user_pallas,
+                user_pallas=hp.user_pallas, **feats,
             )
     return state

@@ -5,7 +5,8 @@ Counterpart of ``lightfm_tpu/model.py:83-1420``: the constructor,
 ``get_*_representations``, ``get_params``/``set_params``, pickling and the
 twelve reference state arrays as numpy views that user code may edit in
 place.  ``fit`` trains on the fast path only (WARP, BPR or logistic with
-identity features and adagrad, see :meth:`LightFM.fit_partial`); a model
+adagrad; identity features, or narrow feature matrices for WARP and BPR; see
+:meth:`LightFM.fit_partial`); a model
 can also take its state from a checkpoint
 (:func:`lightfm_tpu_torch.load_model`, which reads files the JAX package
 writes) or from :mod:`lightfm_tpu_torch.interop`.
@@ -18,6 +19,7 @@ kernels on the CPU.
 
 from __future__ import annotations
 
+import os
 import weakref
 
 import numpy as np
@@ -27,10 +29,15 @@ import torch
 from lightfm_tpu_torch.config import Hyperparams
 from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
-from lightfm_tpu_torch.sparse import content_fingerprint, identity_rows, pad_csr
+from lightfm_tpu_torch.sparse import PaddedRows, content_fingerprint, identity_rows, pad_csr
 from lightfm_tpu_torch.state import ModelState
 
 __all__ = ["LightFM"]
+
+# Module-level memo of the hybrid path's transposed feature structures
+# (LightFM._transposed_features): the fat tier is hundreds of MB built from
+# the CSR, and a fresh model refit on the same features must not pay it again.
+_TRANSPOSE_MEMO: dict = {}
 
 CYTHON_DTYPE = np.float32  # the reference's on-disk dtype; kept for parity
 
@@ -340,11 +347,13 @@ class LightFM:
         """Fit the model, resuming from the current state if already fitted.
 
         Trains on the fast path (:mod:`lightfm_tpu_torch.fast_warp`): loss
-        ``warp``, ``bpr`` or ``logistic``, adagrad, no L2, identity
-        features, an item table of at least 2^19 elements (rows x padded
-        width), ``fast_path="on"`` or ``"auto"`` on a CUDA device.  Other
-        configurations raise ``NotImplementedError`` naming the ROADMAP.md
-        item that ports them.  Every epoch draws one seed from
+        ``warp``, ``bpr`` or ``logistic``, adagrad, no L2, an item table of
+        at least 2^19 elements (feature count x padded width),
+        ``fast_path="on"`` or ``"auto"`` on a CUDA device; identity features,
+        or for ``warp`` and ``bpr`` user/item feature matrices of at most
+        ``MAX_FAST_FEAT_NNZ`` = 16 padded entries per row (the hybrid path).
+        Other configurations raise ``NotImplementedError`` naming the
+        ROADMAP.md item that ports them.  Every epoch draws one seed from
         ``random_state``, which seeds that epoch's ``torch.Generator``.
         """
         if checkpoint_every_n_epochs is not None:
@@ -390,12 +399,6 @@ class LightFM:
         ):
             self._check_input_finite(input_data)
 
-        if not (self._is_identity(user_features) and self._is_identity(item_features)):
-            raise NotImplementedError(
-                "training with user or item feature matrices (the hybrid fast "
-                "path, kernel K3) is not ported yet (ROADMAP.md, item 2); the "
-                "port trains identity features only"
-            )
         if self._state is not None:
             if not item_features.shape[1] == self._state.item_table.shape[0]:
                 raise ValueError("Incorrect number of features in item_features")
@@ -411,8 +414,8 @@ class LightFM:
         data = build_train_data(
             interactions,
             np.asarray(sample_weight_data),
-            identity_rows(user_features.shape[0]),
-            identity_rows(item_features.shape[0]),
+            self._pad_features(user_features),
+            self._pad_features(item_features),
             hp,
             batch_size,
             self._device,
@@ -420,6 +423,19 @@ class LightFM:
         fast = fast_warp_eligible(hp, data, self.mesh, self.example_shuffle, batch_size)
         if not fast and not _no_op(hp):
             raise _generic_path_error(hp)
+        if fast and hp.loss in ("warp", "bpr"):
+            # Hybrid aggregated update: stage the TRANSPOSED feature lists
+            # so feature-table updates run scatter-free; None for identity
+            # sides or when the dense per-step streams would outgrow the
+            # batch-proportional budget.
+            data = data._replace(
+                user_feats_T=self._transposed_features(
+                    user_features, data.user_feats, batch_size, hp.fast_precision
+                ),
+                item_feats_T=self._transposed_features(
+                    item_features, data.item_feats, batch_size, hp.fast_precision
+                ),
+            )
 
         if self._state is None:
             self._state = init_state(
@@ -432,8 +448,8 @@ class LightFM:
             )
         # Remembered for serving defaults (recommend's catalog size).
         self.n_users_, self.n_items_ = n_users, n_items
-        self._item_features_used = False
-        self._user_features_used = False
+        self._item_features_used = not self._is_identity(item_features)
+        self._user_features_used = not self._is_identity(user_features)
 
         # The staged device-resident training set, so callers (tests,
         # benchmarks) can run epochs again without the host prep.
@@ -608,6 +624,92 @@ class LightFM:
             if int(lengths.max()) > max(4 * cap, 64):
                 return pad_csr(csr, pad_multiple=8, width_cap=cap, device=self._device)
         return pad_csr(csr, pad_multiple=8, device=self._device)
+
+    def _transposed_features(self, csr, padded, batch_size, fast_precision):
+        """Transposed feature lists for the aggregated hybrid update
+        (``lightfm_tpu/model.py:309-354``), or None when it should not
+        engage: identity features, or entity + feature counts so large
+        that the dense per-step table streams would dominate the batch work.
+        Memoized module-wide by the feature matrix's identity, content,
+        precision and device, so refitting a fresh model on the same
+        features does not build the fat tier again."""
+        if not isinstance(padded, PaddedRows):
+            return None
+        if padded.n_rows + padded.n_cols > 32 * batch_size:
+            return None
+        key = (f"feats_T_{fast_precision}", str(self._device), id(csr),
+               content_fingerprint(csr))
+        hit = _TRANSPOSE_MEMO.get(key)
+        if hit is not None:
+            ref, val = hit
+            if ref() is csr:
+                return val
+        val = self._build_transposed(csr, fast_precision)
+        try:
+            # Sweep dead entries first (a collected matrix must not keep
+            # hundreds of MB of device tensors alive), then bound the rest.
+            for k in [k for k, (r, _) in _TRANSPOSE_MEMO.items() if r() is None]:
+                _TRANSPOSE_MEMO.pop(k, None)
+            if len(_TRANSPOSE_MEMO) >= 4:  # bounded: drop the oldest
+                _TRANSPOSE_MEMO.pop(next(iter(_TRANSPOSE_MEMO)))
+            _TRANSPOSE_MEMO[key] = (weakref.ref(csr), val)
+        except TypeError:
+            pass
+        return val
+
+    @property
+    def _FAT_TIER_LIMIT_BYTES(self):
+        """Dense fat-tier budget across ``fat_w`` and ``fat_w2``:
+        ``LIGHTFM_TPU_FAT_TIER_BYTES``, default 1.5 GiB."""
+        return int(os.environ.get("LIGHTFM_TPU_FAT_TIER_BYTES", 1536 << 20))
+
+    def _build_transposed(self, csr, fast_precision):
+        """:class:`~lightfm_tpu_torch.fast_warp.TransposedFeats` of ``csr``
+        (``lightfm_tpu/model.py:368-432``): transposed rows longer than 8
+        become the dense fat tier, the rest the thin padded tier.  None when
+        the fat tier is over budget (then updates run as scatters)."""
+        from lightfm_tpu_torch.fast_warp import TransposedFeats
+
+        csr_t = sp.csr_matrix(csr).T.tocsr()
+        lengths = np.diff(csr_t.indptr)
+        fat = np.flatnonzero(lengths > 8)
+        limit = self._FAT_TIER_LIMIT_BYTES
+        if not len(fat):
+            return TransposedFeats(
+                thin=pad_csr(csr_t, pad_multiple=1, device=self._device),
+                fat_rows=None, fat_w=None, fat_w2=None,
+            )
+        # Budget, stage 1 (before paying todense): even the best case, one
+        # shared bf16 matrix, is over.
+        if len(fat) * csr_t.shape[1] * 2 > limit:
+            return None
+        keep = np.ones(csr_t.shape[0], np.float32)
+        keep[fat] = 0.0
+        thin_csr = sp.diags(keep).dot(csr_t).tocsr()
+        thin_csr.eliminate_zeros()
+        dense = torch.from_numpy(np.asarray(csr_t[fat].todense(), dtype=np.float32))
+        dense = dense.to(self._device)  # the checks below run on the device
+        sq = dense * dense
+        # bf16 storage only when both matrices round-trip exactly (the
+        # binary-weight case): the scatter path it replaces keeps f32 data.
+        bf16_ok = (
+            fast_precision == "default"
+            and torch.equal(dense.bfloat16().float(), dense)
+            and torch.equal(sq.bfloat16().float(), sq)
+        )
+        dt = torch.bfloat16 if bf16_ok else torch.float32
+        shared = torch.equal(sq, dense)
+        # Budget, stage 2: the actual bytes, dtype and sharing known.
+        if (1 if shared else 2) * dense.numel() * (2 if bf16_ok else 4) > limit:
+            return None
+        fat_w = dense.to(dt)
+        fat_w2 = fat_w if shared else sq.to(dt)
+        return TransposedFeats(
+            thin=pad_csr(thin_csr, pad_multiple=1, device=self._device),
+            fat_rows=torch.from_numpy(fat.astype(np.int32)).to(self._device),
+            fat_w=fat_w,
+            fat_w2=fat_w2,
+        )
 
     def _memo_by_identity(self, kind: str, obj, build):
         """Memoize ``build(obj)`` in the serving cache keyed by ``obj``'s

@@ -30,7 +30,9 @@ class TrainData(NamedTuple):
 
     ``packed`` int32 [8, n_pad]: rows 0 = user id, 1 = item id, 2 = value
     bits, 3 = weight bits (float32 bit patterns), 4 = valid flag, 5-7 zero
-    pad -- the JAX package's layout, bitwise.
+    pad -- the JAX package's layout, bitwise.  ``user_feats``/``item_feats``
+    are :class:`IdentityRows` or, for a hybrid fit, padded feature matrices
+    already on the device.
     """
 
     packed: torch.Tensor
@@ -41,6 +43,11 @@ class TrainData(NamedTuple):
     # Item column of every training interaction: BPR's empirical negative
     # distribution (template:1123-1127).  None for other losses.
     train_items: Optional[torch.Tensor]
+    # Transposed feature lists (fast_warp.TransposedFeats) for the hybrid
+    # path's aggregated update; None for identity sides or when the model
+    # does not stage them (then feature updates run as scatters).
+    user_feats_T: Optional[object] = None
+    item_feats_T: Optional[object] = None
 
 
 def choose_batch_size(n_examples: int, requested: Optional[int]) -> int:
@@ -171,7 +178,8 @@ def build_train_data(
 def _generic_path_error(hp: Hyperparams) -> NotImplementedError:
     return NotImplementedError(
         f"lightfm_tpu_torch trains only on the fast path (loss warp, bpr or "
-        f"logistic; adagrad; item_alpha = user_alpha = 0; identity features; "
+        f"logistic; adagrad; item_alpha = user_alpha = 0; identity features, or "
+        f"for warp and bpr feature matrices of at most 16 padded entries per row; "
         f"an item table of at least 2^19 elements; fast_path 'on', or 'auto' "
         f"on a CUDA device); this configuration (loss={hp.loss!r}, "
         f"learning_schedule={hp.learning_schedule!r}, fast_path={hp.fast_path!r}) "

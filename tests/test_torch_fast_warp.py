@@ -382,11 +382,17 @@ def test_eligibility_gate(planted, monkeypatch):
 
 
 def test_out_of_slice_configurations_raise(planted):
-    tags = sp.hstack([sp.identity(8000, dtype=np.float32, format="csr"),
-                      sp.random(8000, 50, density=0.05, format="csr", dtype=np.float32,
-                                random_state=0)], format="csr")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        _tm().fit(planted, item_features=tags, epochs=1)
+    def tags(density):
+        return sp.hstack([sp.identity(8000, dtype=np.float32, format="csr"),
+                          sp.random(8000, 50, density=density, format="csr",
+                                    dtype=np.float32, random_state=0)], format="csr")
+
+    # Hybrid WARP/BPR train on the fast path; hybrid logistic and feature
+    # rows wider than MAX_FAST_FEAT_NNZ need the generic path.
+    with pytest.raises(NotImplementedError, match="item 3"):
+        _tm(loss="logistic").fit(planted, item_features=tags(0.05), epochs=1)
+    with pytest.raises(NotImplementedError, match="item 3"):
+        _tm().fit(planted, item_features=tags(0.5), epochs=1)
     with pytest.raises(NotImplementedError, match="item 7"):
         _tm(mesh=object()).fit(planted, epochs=1)
     with pytest.raises(NotImplementedError, match="item 5"):

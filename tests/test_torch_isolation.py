@@ -43,6 +43,7 @@ def test_import_without_jax_loads_no_lightfm_tpu_module():
         "import lightfm_tpu_torch\n"
         "from lightfm_tpu_torch import evaluation, retrieval, interop, checkpoint\n"
         "from lightfm_tpu_torch.ops import ranking, rank_counts, adagrad_update, _build\n"
+        "from lightfm_tpu_torch.ops import grad_sums, warp_fit\n"
         "from lightfm_tpu_torch import fast_warp, train, losses, observability\n"
         "print(json.dumps(sorted(m for m, mod in sys.modules.items() if mod is not None"
         " and m.split('.')[0] in ('jax', 'jaxlib', 'lightfm_tpu'))))\n"
