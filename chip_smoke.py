@@ -5,7 +5,8 @@
 Builds the CUDA kernels from ``lightfm_tpu_torch/csrc`` (into the ignored
 ``lightfm_tpu_torch/_build``), holds each rank kernel against its plain
 PyTorch version at the serving shape of ``benchmarks/bench_serving.py``
-(50,000 users x 100,000 items, D=64, T=10), then drives
+(50,000 users x 100,000 items, D=64, T=10), at the heavy-tier and hybrid
+launch shapes and at the launch plan's edges, then drives
 ``LightFM.predict_rank`` with the four metrics, ``recommend`` and
 ``predict`` at that width with random weights made from ``--seed``, and
 checks what comes out.  Then it holds the adagrad update kernel (K1, and
@@ -168,8 +169,64 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
         same = torch.equal(rc.rank_counts(su, si, sts), rc.rank_counts_plain(su, si, sts))
         check(same, f"Wa={wa}, T={t}: rank_counts equals plain exactly")
 
+    # (e) the shapes of the main path's other launches and the edges of the
+    # launch plan, integer-valued so exact: the heavy tier (U=256), the
+    # hybrid predict_rank (U=4,096, T=1), one user and one item, and a
+    # catalog of one tile plus one row.
+    def plan_text(n_u, n_i, t, wa):
+        shape, plan = rc.plan_for(n_u, n_i, t, wa, dev)
+        return (f"{shape.block_users} users x {rc.BLOCK_ITEMS} items a block, t_pad "
+                f"{shape.t_pad}, {shape.smem_bytes} B smem, {shape.blocks_per_sm}/SM; "
+                f"grid {plan.user_tiles} x {plan.item_splits} = {plan.blocks} blocks, "
+                f"{plan.tiles_per_split} tiles a split")
+
+    log(f"  plan U={U} I={I} T={T}: {plan_text(U, I, T, Wa)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    check(rc.plan_for(256, I, T, Wa, dev)[1].blocks >= sms,
+          f"the heavy tier's launch (U=256) has at least {sms} blocks, one per SM")
+    for n_u, n_i, t in ((256, I, T), (4096, I, 1), (1, 1, 1), (1, 1, T), (300, 65, T)):
+        su = randint(-2, 3, (n_u, Wa)).float()
+        si = randint(-2, 3, (n_i, Wa)).float()
+        sts = randint(-40, 41, (n_u, t)).float() / 2
+        half = (t + 1) // 2
+        sts[:, :half] = rc.pair_scores(su, si, randint(0, n_i, (n_u, half)).int())
+        same = torch.equal(rc.rank_counts(su, si, sts), rc.rank_counts_plain(su, si, sts))
+        check(same, f"U={n_u} I={n_i} T={t} [{plan_text(n_u, n_i, t, Wa)}]: "
+                    "rank_counts equals plain exactly")
+
+    # (f) two launches at the serving shape are bitwise equal (the item
+    # splits add their partial counts with integer atomics); the gaussian
+    # inputs of (b).
+    check(torch.equal(got, rc.rank_counts(u, items, ts)),
+          "two gaussian rank_counts launches are bitwise equal")
+
+    # (g) the kernel keeps row_dot's FMA chain: for 64 users, pair_scores
+    # against every catalog row (row_dot's own chain), counted with >=
+    # against the same thresholds, equals the kernel's counts exactly.
+    sample = torch.randperm(U, generator=g, device=dev)[:64]
+    every = torch.arange(I, dtype=torch.int32, device=dev).expand(64, I).contiguous()
+    s_all = rc.pair_scores(u[sample].contiguous(), items, every)
+    chain = (s_all[:, None, :] >= ts[sample][:, :, None]).sum(-1).float()
+    bad = int((got[sample] != chain).sum())
+    log(f"  gaussian counts vs pair_scores over the whole catalog, 64 users: {bad} differ")
+    check(bad == 0, "gaussian rank_counts equals >= counts over pair_scores exactly")
+    del s_all, every, chain
+
     # Times on the gaussian inputs.
     peak = fp32_peak_flops(torch)
+    uh, th = u[:256].contiguous(), ts[:256].contiguous()
+    heavy_ms = time_ms(torch, lambda: rc.rank_counts(uh, items, th), reps=20)
+    heavy_ops = 2 * 256 * I * Wa + 256 * I * T
+    heavy_bytes = 4 * (256 * Wa + I * Wa + 2 * 256 * T)
+    heavy_bound = max(heavy_bytes / HBM_BYTES_PER_S, heavy_ops / peak) * 1e3
+    log(f"  rank_counts heavy tier (U=256, T={T}) {heavy_ms:.4f} ms, bound {heavy_bound:.4f} ms")
+    # The compares' share: the same scores counted against 1, 4, 8 and 12
+    # slots (T=1 is the FMA loop with almost no compares).
+    sweep = {}
+    for t in (1, 4, 8, 12):
+        ts_t = torch.cat([ts, ts[:, :2]], 1)[:, :t].contiguous()
+        sweep[t] = time_ms(torch, lambda: rc.rank_counts(u, items, ts_t))
+    log("  rank_counts by slot count (ms): " + json.dumps(sweep))
     k_ms = time_ms(torch, lambda: rc.rank_counts(u, items, ts))
     p_ms = time_ms(torch, lambda: rc.rank_counts_plain(u, items, ts), reps=2)
 
@@ -205,6 +262,7 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": rc_bound,
             "bound_by": "operations" if rc_ops / peak > rc_bytes / HBM_BYTES_PER_S else "bytes",
             "library_ms": lib_ms,
+            "ms_heavy_tier": heavy_ms, "bound_ms_heavy_tier": heavy_bound,
         },
         {
             "name": "pair_scores", "route": "cuda",
@@ -1306,6 +1364,9 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
+    spills = [ln for ln in _build.build_log("rank_counts").splitlines() if "spill" in ln]
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in spills),
+          f"ptxas: no rank_counts template spills ({len(spills)} functions reported)")
     card = nvidia_smi("name,power.limit")
 
     i_pad = -(-(N_ITEMS + 1) // 2048) * 2048  # the ranking path's padded catalog

@@ -10,9 +10,14 @@ Bound of :func:`rank_counts` on the card: ``2*U*I*Wa`` fp32 FLOP plus
 ``U*I*T`` compares on the FP32 CUDA cores, whose rate is SM count x 128
 lanes x 2 x clock (about 67 TFLOP/s on an H100 SXM at 700 W); the bytes
 (the inputs once, the counts once) are three orders of magnitude smaller.
-The simple design stages user and item tiles in shared memory and reads
-both operands from there for every FMA, so it runs at the shared-memory
-issue rate, several times below that bound; see the source for the layout.
+The kernel is a register-tiled fp32 scorer: each thread keeps an 8 (or 4)
+users x 8 items tile of scores in registers, so four float4 shared-memory
+loads feed 64 FMAs, over k-major operands this wrapper stages
+(``u_aug.T``, ``items_aug.T`` padded to a multiple of 4 columns), with the
+item tiles double-buffered by ``cp.async``.  Every score keeps row_dot's
+FMA chain, bitwise what :func:`pair_scores` computes.  The grid is (user
+tiles x item splits); :func:`launch_plan` picks the split so that the card
+fills at any user count.  See the source for the layout.
 
 Each wrapper takes its plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises; there is no fallback.  ``launches``
@@ -23,6 +28,8 @@ its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,8 +38,105 @@ from lightfm_tpu_torch.ops.representation import f32_dot
 
 # Largest test-slot count the counting kernel takes (its register tiles).
 MAX_T = 32
+# The kernel's layout (csrc/rank_counts.cu): 64-item tiles, item chunks of
+# at most 80 k-rows in two buffers, and the shared memory of one SM (228 KB,
+# of it at most 227 KB for a block, 1 KB reserved per resident block).
+BLOCK_ITEMS = 64
+MAX_CHUNK_ROWS = 80
+MAX_BLOCK_SMEM = 232_448
+SM_SMEM = 233_472
+# Widest augmented row the resident user tile admits (64 users, t_pad 32).
+MAX_WA = (MAX_BLOCK_SMEM - 4 * (64 * 32 + 2 * MAX_CHUNK_ROWS * BLOCK_ITEMS)) // (4 * 64)
 
 launches = {"rank_counts": 0, "pair_scores": 0}
+
+
+class KernelShape(NamedTuple):
+    block_users: int  # users per block: 16 x the thread tile's 8 or 4
+    t_pad: int  # test slots the template compares (T padded with +inf)
+    chunk_rows: int  # k-rows of a staged item chunk
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+class LaunchPlan(NamedTuple):
+    user_tiles: int
+    item_splits: int
+    tiles_per_split: int  # 64-item tiles each split walks (the last may walk fewer)
+
+    @property
+    def blocks(self) -> int:
+        return self.user_tiles * self.item_splits
+
+
+def kernel_shape(T: int, Wa: int) -> KernelShape:
+    """The template and shared-memory layout of one launch.  An 8-user
+    thread tile keeps 8 x t_pad counters and 64 scores in registers, so it
+    takes t_pad <= 12 and rows up to 128 wide (two blocks per SM); wider
+    slot counts or rows take the 4-user tile (t_pad >= 16)."""
+    if not 1 <= T <= MAX_T:
+        raise ValueError(f"rank_counts kernel takes 1 <= T <= {MAX_T}, got {T}")
+    if not 1 <= Wa <= MAX_WA:
+        raise ValueError(f"rank_counts kernel takes 1 <= Wa <= {MAX_WA}, got {Wa}")
+    t_pad = T if T <= 2 else -(-T // 4) * 4
+    block_users = 128
+    if t_pad > 12 or Wa > 128:
+        block_users, t_pad = 64, max(t_pad, 16)
+    n_chunks = -(-Wa // MAX_CHUNK_ROWS)
+    kc = -(-Wa // n_chunks)
+    smem = 4 * (block_users * t_pad + Wa * block_users + 2 * kc * BLOCK_ITEMS)
+    return KernelShape(block_users, t_pad, kc, smem, min(2, SM_SMEM // (smem + 1024)))
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(U: int, I: int, n_sms: int, blocks_per_sm: int, block_users: int = 128) -> LaunchPlan:
+    """Split the catalog so that the (user tiles x item splits) grid fills
+    the card.  Each split walks a contiguous run of whole item tiles, none
+    empty.  The cost of a plan is its waves of ``n_sms * blocks_per_sm``
+    blocks times the tiles a block walks, plus the user tile it loads
+    (``block_users / BLOCK_ITEMS`` tiles' worth); the cheapest plan with at
+    least ``min(n_sms, user tiles x item tiles)`` blocks wins, the fewer
+    splits on a tie (fewer atomics)."""
+    user_tiles = max(1, -(-U // block_users))
+    item_tiles = max(1, -(-I // BLOCK_ITEMS))
+    slots = n_sms * blocks_per_sm
+    need = min(n_sms, user_tiles * item_tiles)
+    best = None
+    for per_split in range(1, item_tiles + 1):
+        splits = -(-item_tiles // per_split)
+        blocks = user_tiles * splits
+        if blocks < need:
+            continue
+        cost = -(-blocks // slots) * (per_split + block_users / BLOCK_ITEMS)
+        key = (cost, splits)
+        if best is None or key < best[0]:
+            best = (key, LaunchPlan(user_tiles, splits, per_split))
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(U: int, I: int, T: int, Wa: int, device) -> tuple[KernelShape, LaunchPlan]:
+    """The shape and plan :func:`rank_counts` launches with on ``device``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    shape = kernel_shape(T, Wa)
+    plan = launch_plan(U, I, _sm_count(index), shape.blocks_per_sm, shape.block_users)
+    return shape, plan
+
+
+def stage_k_major(u_aug: torch.Tensor, items_aug: torch.Tensor):
+    """The kernel's operands: ``u_aug.T`` [Wa, U] and ``items_aug.T`` with
+    its rows padded by zero columns to a multiple of 4 (16-byte-aligned
+    rows for ``cp.async``), [Wa, ldi]."""
+    I, Wa = items_aug.shape
+    ldi = -(-I // 4) * 4
+    it_t = items_aug.new_zeros((Wa, ldi))
+    it_t[:, :I] = items_aug.T
+    return u_aug.T.contiguous(), it_t
 
 
 def reset_launches() -> None:
@@ -44,7 +148,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rank_counts")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rank_counts_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.rank_counts_launch.argtypes = [p, p, p, p] + [i] * 11 + [p]
         lib.rank_counts_launch.restype = i
         lib.pair_scores_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.pair_scores_launch.restype = i
@@ -105,7 +209,7 @@ def rank_counts(
 
     ``u_aug`` f32 [U, Wa], ``items_aug`` f32 [I, Wa] (pad rows score -inf),
     ``ts`` f32 [U, T] (+inf in invalid slots, which then count 0).  On the
-    card the kernel takes T <= 32 and any Wa or I.
+    card the kernel takes T <= 32, Wa <= ``MAX_WA`` and any U or I.
     """
     dev = u_aug.device
     _check("u_aug", u_aug, torch.float32, 2, dev)
@@ -122,15 +226,16 @@ def rank_counts(
         return rank_counts_plain(u_aug, items_aug, ts)
     if dev.type != "cuda":
         raise ValueError(f"rank_counts runs on CUDA or CPU tensors, not {dev}")
-    if T > MAX_T:
-        raise ValueError(f"rank_counts kernel takes T <= {MAX_T}, got {T}")
-    counts = torch.empty((U, T), dtype=torch.int32, device=dev)
-    if U == 0 or T == 0:
-        return counts.to(torch.float32)
+    if U == 0 or T == 0 or I == 0:
+        return torch.zeros((U, T), dtype=torch.float32, device=dev)
+    shape, plan = plan_for(U, I, T, Wa, dev)  # raises for T > MAX_T or Wa > MAX_WA
+    counts = torch.zeros((U, T), dtype=torch.int32, device=dev)  # blocks add into it
+    u_t, it_t = stage_k_major(u_aug, items_aug)
     lib = _lib()
     code = lib.rank_counts_launch(
-        u_aug.data_ptr(), items_aug.data_ptr(), ts.data_ptr(), counts.data_ptr(),
-        U, I, Wa, T, _stream(dev),
+        u_t.data_ptr(), it_t.data_ptr(), ts.data_ptr(), counts.data_ptr(),
+        U, I, it_t.shape[1], Wa, T, shape.block_users, shape.t_pad, shape.chunk_rows,
+        plan.user_tiles, plan.item_splits, plan.tiles_per_split, _stream(dev),
     )
     _check_launch(lib, code, "rank_counts")
     launches["rank_counts"] += 1
