@@ -9,9 +9,13 @@ PyTorch version at the serving shape of ``benchmarks/bench_serving.py``
 launch shapes and at the launch plan's edges, then drives
 ``LightFM.predict_rank`` with the four metrics, ``recommend`` and
 ``predict`` at that width with random weights made from ``--seed``, and
-checks what comes out.  Then it holds the adagrad update kernel (K1, and
-K4 over it) and the gradient-sums kernel (K3) against their plain versions
-at the training step's shape, and trains with ``LightFM.fit`` at the
+checks what comes out, with one ``predict_rank`` at D=712 (rows so wide
+that the rank kernel streams its user tile).  Then it holds the
+adagrad update kernel (K1, and K4 over it) against its plain version on
+Zipf, uniform and hot-row touches at the training step's shape and on
+touches laid out against the kernel's segments at four widths, with
+CUDA-event, profiler and host times for each, the gradient-sums kernel
+(K3) at the training step's shape, and trains with ``LightFM.fit`` at the
 ``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
 users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
 epochs with a train-sample AUC guard, a same-seed determinism check, one
@@ -161,11 +165,12 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
     check(bool((zc == I).all()), "zero embeddings count every item")
 
     # (d) other widths and slot counts (the >48 KB shared-memory launch
-    # path, the T=1 and T=32 templates), integer-valued so exact.
-    for wa, t in ((265, 32), (9, 1), (40, 17)):
-        su = randint(-2, 3, (1000, wa)).float()
+    # path, the T=1 and T=32 templates, the user tile streamed at Wa = 300
+    # and 721 with a part-filled last user tile), integer-valued so exact.
+    for wa, t in ((265, 32), (9, 1), (40, 17), (300, 32), (721, 10)):
+        su = randint(-2, 3, (1001, wa)).float()
         si = randint(-2, 3, (5000, wa)).float()
-        sts = rc.pair_scores(su, si, randint(0, 5000, (1000, t)).int())
+        sts = rc.pair_scores(su, si, randint(0, 5000, (1001, t)).int())
         same = torch.equal(rc.rank_counts(su, si, sts), rc.rank_counts_plain(su, si, sts))
         check(same, f"Wa={wa}, T={t}: rank_counts equals plain exactly")
 
@@ -252,6 +257,7 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
         f"bound {ps_bound:.4f} ms")
     del zu, zi, u, items
     torch.cuda.empty_cache()
+    wide = wide_kernel_checks(torch, g, I, peak)
 
     return [
         {
@@ -263,6 +269,7 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
             "bound_by": "operations" if rc_ops / peak > rc_bytes / HBM_BYTES_PER_S else "bytes",
             "library_ms": lib_ms,
             "ms_heavy_tier": heavy_ms, "bound_ms_heavy_tier": heavy_bound,
+            **wide,
         },
         {
             "name": "pair_scores", "route": "cuda",
@@ -274,6 +281,74 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
             "library_ms": None,
         },
     ]
+
+
+WIDE_D, WIDE_USERS = 712, 1024
+
+
+def wide_kernel_checks(torch, g, I: int, peak: float) -> dict:
+    """Phase 2 (h): the rank kernels at the width of D = 712 (Wa = 721,
+    the user tile staged chunk by chunk) on the shape of the D = 712
+    ``predict_rank`` (1,024 users against the padded catalog, T = 10):
+    integer-valued inputs equal plain exactly, gaussian counts equal >=
+    counts over ``pair_scores`` against the whole catalog for 64 users (the
+    FMA chain kept across the streamed chunks), and times."""
+    from lightfm_tpu_torch.ops import rank_counts as rc
+    from lightfm_tpu_torch.state import table_width
+
+    dev = torch.device("cuda")
+    U, Wa, T = WIDE_USERS, table_width(WIDE_D) + 1, T_TEST
+    shape, plan = rc.plan_for(U, I, T, Wa, dev)
+    log(f"  D={WIDE_D} (Wa={Wa}): {shape}, {plan}")
+    check(shape.stream_users, f"Wa={Wa}: the user tile streams")
+
+    def randint(lo, hi, shp):
+        return torch.randint(lo, hi, shp, generator=g, device=dev)
+
+    u = randint(-2, 3, (U, Wa)).float()
+    items = randint(-2, 3, (I, Wa)).float()
+    ts = randint(-80, 81, (U, T)).float() / 2
+    ts[:, : T // 2] = rc.pair_scores(u, items, randint(0, I, (U, T // 2)).int())
+    check(torch.equal(rc.rank_counts(u, items, ts), rc.rank_counts_plain(u, items, ts)),
+          f"Wa={Wa}, U={U}, I={I}, T={T}: integer rank_counts equals plain exactly")
+
+    u = torch.randn((U, Wa), generator=g, device=dev) / Wa**0.5
+    items = torch.randn((I, Wa), generator=g, device=dev)
+    ts = rc.pair_scores(u, items, randint(0, I, (U, T)).int())
+    got = rc.rank_counts(u, items, ts)
+    check(torch.equal(got, rc.rank_counts(u, items, ts)),
+          f"Wa={Wa}: two gaussian rank_counts launches are bitwise equal")
+    # The plain version sums in cuBLAS's order, so near ties may flip; the
+    # exact check is the one against pair_scores below.  Logged only.
+    want = rc.rank_counts_plain(u, items, ts)
+    err = float((got - want).abs().max())
+    frac = float(((got - want).abs() > 0).float().mean())
+    log(f"  Wa={Wa} gaussian rank_counts vs plain (cuBLAS order): max|d|={err} "
+        f"frac differing={frac:.3g}")
+    every = torch.arange(I, dtype=torch.int32, device=dev).expand(64, I).contiguous()
+    s_all = rc.pair_scores(u[:64].contiguous(), items, every)
+    chain = (s_all[:, None, :] >= ts[:64, :, None]).sum(-1).float()
+    bad = int((got[:64] != chain).sum())
+    check(bad == 0, f"Wa={Wa}: gaussian rank_counts equals >= counts over pair_scores "
+                    f"exactly (64 users x {I} items; {bad} differ)")
+    del every, s_all, chain
+
+    def scores_matmul():
+        s = u @ items.T
+        del s
+
+    k_ms = time_ms(torch, lambda: rc.rank_counts(u, items, ts), reps=10)
+    p_ms = time_ms(torch, lambda: rc.rank_counts_plain(u, items, ts), reps=3)
+    lib_ms = time_ms(torch, scores_matmul, reps=5)
+    ops = 2 * U * I * Wa + U * I * T
+    nbytes = 4 * (U * Wa + I * Wa + 2 * U * T)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+    log(f"  rank_counts Wa={Wa} U={U}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"matmul {lib_ms:.4f} ms, bound {bound:.4f} ms")
+    del u, items, ts, got, want
+    torch.cuda.empty_cache()
+    return {"ms_wide": k_ms, "plain_ms_wide": p_ms, "library_ms_wide": lib_ms,
+            "bound_ms_wide": bound, "max_abs_err_wide": err}
 
 
 def planted_data(seed: int):
@@ -412,6 +487,66 @@ def timed_predict_rank(torch, ranking, model, test, train):
     }
 
 
+def wide_rank_check(torch, seed: int) -> dict:
+    """``predict_rank`` at D = 712 for 1,024 users against the serving
+    catalog, through the rank kernels (Wa = 721: the user tile streams).
+    Random weights with 1,024 planted clusters (about 98 items each), 10
+    test and 20 train items per user inside its cluster, so most test
+    scores lie where few catalog scores do and most ranks are exact against
+    float64 numpy (64 users held).  Returns the call's launch counts."""
+    from lightfm_tpu_torch import LightFM, interop
+    from lightfm_tpu_torch.ops import rank_counts as rc
+    from lightfm_tpu_torch.state import table_width
+
+    rng = np.random.RandomState(seed + 4)
+    W, n_clusters = table_width(WIDE_D), 1024
+    centroids = rng.randn(n_clusters, WIDE_D).astype(np.float32)
+    user_c = rng.randint(0, n_clusters, WIDE_USERS)
+
+    def table(clusters):
+        t = np.zeros((len(clusters), W), np.float32)
+        noise = rng.randn(len(clusters), WIDE_D).astype(np.float32)
+        t[:, :WIDE_D] = (centroids[clusters] + noise) / np.float32(np.sqrt(WIDE_D))
+        t[:, -1] = 0.1 * rng.randn(len(clusters))
+        return t
+
+    arrays = {"item_table": table(np.arange(N_ITEMS) % n_clusters), "user_table": table(user_c)}
+    for side in ("item", "user"):
+        arrays[f"{side}_acc"] = np.ones_like(arrays[f"{side}_table"])
+        arrays[f"{side}_mom"] = np.zeros_like(arrays[f"{side}_table"])
+        arrays[f"{side}_log_scale"] = np.float32(0)
+    cols = np.stack([c + n_clusters * rng.choice((N_ITEMS - c - 1) // n_clusters + 1,
+                                                 T_TEST + N_TRAIN, replace=False)
+                     for c in user_c])
+
+    def csr(block):
+        rows = np.repeat(np.arange(WIDE_USERS), block.shape[1])
+        return sp.csr_matrix((np.ones(rows.size, np.float32), (rows, block.ravel())),
+                             shape=(WIDE_USERS, N_ITEMS))
+
+    test, train = csr(cols[:, :T_TEST]), csr(cols[:, T_TEST:])
+    model = LightFM(no_components=WIDE_D, random_state=seed)
+    model._state = interop.state_from_numpy(arrays, model.device)
+    model.n_users_, model.n_items_ = WIDE_USERS, N_ITEMS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks, launches = counted(rc, model.predict_rank, test, train_interactions=train)
+    torch.cuda.synchronize()
+    log(f"  predict_rank D={WIDE_D} (Wa={W + 1}), {WIDE_USERS} users: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms, launches {launches}")
+    check(launches["rank_counts"] > 0 and launches["pair_scores"] > 0,
+          f"D={WIDE_D}: predict_rank went through both rank kernels")
+    check(bool((ranks.data >= 0).all() and (ranks.data <= N_ITEMS - 1 - N_TRAIN).all()),
+          f"D={WIDE_D}: every rank lies in [0, n_items - 1 - n_train(u)]")
+    users = np.random.RandomState(seed + 6).choice(WIDE_USERS, 64, replace=False)
+    n_exact, n_near, widest = check_ranks_float64(
+        ranks, test, train, arrays["user_table"], arrays["item_table"], users)
+    check(n_exact > 0.9 * (n_exact + n_near),
+          f"D={WIDE_D}: 64 users' ranks equal float64 numpy ({n_exact} exact, {n_near} "
+          f"near ties in bounds, widest band {widest} ranks)")
+    return launches
+
+
 def serving_path(torch, seed: int) -> dict:
     """Phase 3: predict_rank + metrics, recommend and predict at full width.
     Each path runs with the launch counts set to 0 just before it; returns
@@ -475,6 +610,7 @@ def serving_path(torch, seed: int) -> dict:
     )
     zr, path_launches["predict_rank (zero model)"] = counted(rc, zero.predict_rank, test)
     check(bool((zr.data == N_ITEMS - 1).all()), "a zeroed model ranks every test item n_items - 1")
+    path_launches["predict_rank (D=712)"] = wide_rank_check(torch, seed)
 
     users = np.arange(min(4096, N_USERS))
     k = 100
@@ -537,6 +673,73 @@ def zipf_touches(rng, M: int, R: int, W: int):
     return np.sort(rows).astype(np.int32), wg
 
 
+def uniform_touches(rng, M: int, R: int, W: int, n_hot: int = 0):
+    """M sorted touches of an R-row table, uniform over the rows; with
+    ``n_hot`` > 0, row R // 2 holds exactly ``n_hot`` of them and the rest
+    are uniform over the other rows (one run of n_hot touches)."""
+    if n_hot:
+        rows = rng.randint(0, R - 1, M - n_hot)
+        rows[rows >= R // 2] += 1
+        rows = np.concatenate([rows, np.full(n_hot, R // 2)])
+    else:
+        rows = rng.randint(0, R, M)
+    return np.sort(rows).astype(np.int32), (0.1 * rng.randn(M, W)).astype(np.float32)
+
+
+def edge_touches(rng, R: int, W: int, L: int):
+    """Sorted touches laid out against the kernel's segments of L positions:
+    runs of L - 1, L, L + 1 and 2L + 1 touches, each starting on a segment
+    edge (the run of L ends exactly on the next), short runs between them, a
+    run of negative rows and one of rows >= R that cross edges (both
+    ignored), and a length that is not a multiple of L."""
+    runs = [(-7, L + 3), (-1, L - 2)]
+    pos, row = 2 * L + 1, 0
+    for length in [L - 1, L, L + 1, 2 * L + 1] * 5:
+        while pos % L:
+            k = min(1 + rng.randint(0, 3), L - pos % L)
+            runs.append((row, k))
+            row, pos = row + 1 + rng.randint(0, 3), pos + k
+        runs.append((row, length))
+        row, pos = row + 1, pos + length
+    runs += [(row + 1, 37), (R, L + 5), (R + 3, 2 * L)]
+    assert row + 1 < R
+    rows = np.concatenate([np.full(n, r) for r, n in runs]).astype(np.int32)
+    assert rows.size % L
+    return rows, (0.1 * rng.randn(rows.size, W)).astype(np.float32)
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+
+def device_ms(torch, fn, reps: int = 10) -> dict:
+    """``torch.profiler``'s device time of one call of ``fn``: the CUDA
+    kernels it launched over ``reps`` calls, by kernel name, in ms a call
+    ({} when the profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: _device_us(e) / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0}
+
+
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Host-clock time to enqueue one call of ``fn`` (no synchronise between
+    calls): the wrapper's own cost a call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
 def update_tolerance(torch, table, acc, sidx, wg):
     """Per-element bound on |kernel - plain|: each side sums a row's n_r
     touches in fp32 in its own order, so each is within (n_r + 2) * 2^-23 *
@@ -544,7 +747,7 @@ def update_tolerance(torch, table, acc, sidx, wg):
     summation worst case plus the final multiply and add); twice that
     bounds their difference."""
     R, W = table.shape
-    keep = sidx < R
+    keep = (sidx >= 0) & (sidx < R)
     rows = sidx[keep].long()
     g = wg[keep].double()
     n = torch.zeros(R, dtype=torch.float64, device=table.device)
@@ -558,76 +761,159 @@ def update_tolerance(torch, table, acc, sidx, wg):
     return t_tol, a_tol
 
 
-def update_kernel_checks(torch, seed: int) -> float:
-    """Phase 4: K1 against its plain version at the training step's shape
-    (M = 131,072 touches, W = 72, the item and the user table) on skewed
-    touches, at both precisions; K4 once.  Returns the largest difference
-    seen."""
+def update_bound_ms(M: int, W: int, distinct: int) -> float:
+    """K1's least time: the touches (ids and gradients) read once, and table
+    and acc read and written once for each distinct touched row."""
+    return (4 * M * (W + 1) + 16 * W * distinct) / HBM_BYTES_PER_S * 1e3
+
+
+def check_update(torch, au, what: str, table0, acc0, sidx, wg, reps: int = 20) -> dict:
+    """K1 against its plain version on one set of sorted touches: at both
+    precisions within the summation-order bound, two launches bitwise
+    equal and untouched rows bitwise unchanged; all-masked calls (zero
+    gradients, every row >= R, every row negative) change nothing.  Returns
+    the case's record at "default": the largest difference, the kernel's
+    CUDA-event time back to back (``ms``), its device time from the
+    profiler by kernel (``device_ms``), the host time to enqueue a call,
+    the plain version's time and the bound."""
+    R, W = table0.shape
+    M = sidx.shape[0]
+    ok = (sidx >= 0) & (sidx < R)
+    runs = torch.unique_consecutive(sidx[ok], return_counts=True)[1]
+    untouched = torch.ones(R, dtype=torch.bool, device=sidx.device)
+    untouched[sidx[ok].long()] = False
+    t_tol, a_tol = update_tolerance(torch, table0, acc0, sidx, wg)
+
+    def run(fn, prec="default", s=sidx, g=wg):
+        t, a = table0.clone(), acc0.clone()
+        fn(t, a, s, g, LR, prec)
+        torch.cuda.synchronize()
+        return t, a
+
+    worst = 0.0
+    for prec in au.PRECISIONS:
+        t1, a1 = run(au.sorted_adagrad_update, prec)
+        t2, a2 = run(au.sorted_adagrad_update, prec)
+        check(torch.equal(t1, t2) and torch.equal(a1, a2), f"{what} {prec}: two launches are bitwise equal")
+        tp, ap = run(au.sorted_adagrad_update_plain, prec)
+        dt, da = (t1 - tp).abs(), (a1 - ap).abs()
+        worst = max(worst, float(dt.max()), float(da.max()))
+        check(bool((dt <= t_tol).all() and (da <= a_tol).all()),
+              f"{what} {prec}: kernel equals plain within the summation-order bound "
+              f"(max |d| table {float(dt.max()):.3g}, acc {float(da.max()):.3g})")
+        check(torch.equal(t1[untouched], table0[untouched])
+              and torch.equal(a1[untouched], acc0[untouched]),
+              f"{what} {prec}: untouched rows are bitwise unchanged")
+    for masked, s, g in (
+        ("zero gradients", sidx, torch.zeros_like(wg)),
+        ("every row >= R", torch.full_like(sidx, 2**30), wg),
+        ("every row negative", torch.full_like(sidx, -3), wg),
+    ):
+        t1, a1 = run(au.sorted_adagrad_update, "default", s, g)
+        check(torch.equal(t1, table0) and torch.equal(a1, acc0),
+              f"{what}: an all-masked call ({masked}) changes nothing")
+    del t_tol, a_tol
+    tw, aw = table0.clone(), acc0.clone()
+
+    def kernel():
+        au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default")
+
+    split = device_ms(torch, kernel)
+    distinct = int(runs.numel())
+    rec = {
+        "M": M, "W": W, "R": R, "distinct": distinct, "hottest": int(runs.max()) if distinct else 0,
+        "ms": time_ms(torch, kernel, reps=reps), "device_ms": sum(split.values()),
+        "device_split": split, "host_ms": host_ms(torch, kernel),
+        "plain_ms": time_ms(torch, lambda: au.sorted_adagrad_update_plain(
+            tw, aw, sidx, wg, LR, "default"), reps=5),
+        "bound_ms": update_bound_ms(M, W, distinct), "max_abs_err": worst,
+    }
+    log(f"  {what}: " + json.dumps(rec))
+    return rec
+
+
+def update_kernel_checks(torch, seed: int) -> dict:
+    """Phase 4: K1 against its plain version (``check_update``) at the
+    training step's shape (M = 131,072 touches, W = 72) on Zipf touches over
+    the item and the user table, on uniform touches, and with one hot row of
+    n touches for n from 1 to all M; then on touches laid out against the
+    kernel's segments (runs of L - 1, L, L + 1 and 2L + 1 from an edge,
+    sentinel runs across edges, M not a multiple of L) at W = 8, 40, 72 and
+    136; K4 once.  Returns the largest difference and every case's record."""
+    from lightfm_tpu_torch.ops import _build
     from lightfm_tpu_torch.ops import adagrad_update as au
     from lightfm_tpu_torch.state import table_width
 
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed + 3)
-    M, W = TRAIN_BATCH, table_width(D)
-    log(f"phase 4: adagrad update kernel vs plain at M={M} W={W}, Zipf touches")
-    worst = 0.0
-    for R in (TRAIN_ITEMS, TRAIN_USERS):
-        sidx_np, wg_np = zipf_touches(rng, M, R, W)
+    M, W, L = TRAIN_BATCH, table_width(D), au.SEGMENT
+    log(f"phase 4: adagrad update kernel (K1) vs plain, segments of {L} touches")
+    ptxas = [ln.strip() for ln in _build.build_log("adagrad_update").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for ln in ptxas:
+        log(f"  ptxas adagrad_update: {ln}")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in ptxas if "spill" in ln),
+          f"ptxas: no adagrad_update function spills ({len(ptxas)} lines)")
+
+    cases = [("Zipf items", TRAIN_ITEMS, W, lambda: zipf_touches(rng, M, TRAIN_ITEMS, W)),
+             ("Zipf users", TRAIN_USERS, W, lambda: zipf_touches(rng, M, TRAIN_USERS, W)),
+             ("uniform items", TRAIN_ITEMS, W, lambda: uniform_touches(rng, M, TRAIN_ITEMS, W))]
+    cases += [(f"hot row n={n}", TRAIN_ITEMS, W,
+               lambda n=n: uniform_touches(rng, M, TRAIN_ITEMS, W, n_hot=n))
+              for n in sorted({1, 64, 65, 4096, 65536, M}) if n <= M]
+    cases += [(f"segment edges W={w}", 5000, w, lambda w=w: edge_touches(rng, 5000, w, L))
+              for w in (8, 40, 72, 136)]
+    out, worst = {}, 0.0
+    for what, R, w, make in cases:
+        sidx_np, wg_np = make()
         sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
-        table0 = torch.from_numpy((0.1 * rng.randn(R, W)).astype(np.float32)).to(dev)
-        acc0 = torch.from_numpy((1.0 + rng.rand(R, W)).astype(np.float32)).to(dev)
-        in_range = sidx[sidx < R]
-        runs = torch.unique_consecutive(in_range, return_counts=True)[1]
-        untouched = torch.ones(R, dtype=torch.bool, device=dev)
-        untouched[in_range.long()] = False
-        log(f"  R={R}: {runs.numel()} distinct rows, hottest row {int(runs.max())} touches, "
-            f"{int((sidx >= R).sum())} out-of-range touches, {int(untouched.sum())} untouched rows")
-        t_tol, a_tol = update_tolerance(torch, table0, acc0, sidx, wg)
-
-        def run(fn, s=sidx, g=wg, prec="default"):
-            t, a = table0.clone(), acc0.clone()
-            fn(t, a, s, g, LR, prec)
-            torch.cuda.synchronize()
-            return t, a
-
-        for prec in ("highest", "default"):
-            t1, a1 = run(au.sorted_adagrad_update, prec=prec)
-            t2, a2 = run(au.sorted_adagrad_update, prec=prec)
-            check(torch.equal(t1, t2) and torch.equal(a1, a2),
-                  f"R={R} {prec}: two launches are bitwise equal")
-            tp, ap = run(au.sorted_adagrad_update_plain, prec=prec)
-            dt, da = (t1 - tp).abs(), (a1 - ap).abs()
-            worst = max(worst, float(dt.max()), float(da.max()))
-            check(bool((dt <= t_tol).all() and (da <= a_tol).all()),
-                  f"R={R} {prec}: kernel equals plain within the summation-order bound "
-                  f"(max |d| table {float(dt.max()):.3g}, acc {float(da.max()):.3g})")
-            check(torch.equal(t1[untouched], table0[untouched])
-                  and torch.equal(a1[untouched], acc0[untouched]),
-                  f"R={R} {prec}: untouched rows are bitwise unchanged")
-        for what, s, g in (
-            ("zero gradients", sidx, torch.zeros_like(wg)),
-            ("every row out of range", torch.full_like(sidx, 2**30), wg),
-        ):
-            t1, a1 = run(au.sorted_adagrad_update, s, g)
-            check(torch.equal(t1, table0) and torch.equal(a1, acc0),
-                  f"R={R}: an all-masked call ({what}) changes nothing")
-        tw, aw = table0.clone(), acc0.clone()
-        z_ms = time_ms(torch, lambda: au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default"), reps=10)
-        z_plain = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, sidx, wg, LR, "default"), reps=5)
-        log(f"  R={R} Zipf touches: kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms")
-
-        if R == TRAIN_ITEMS:  # K4 once: the same touches in random order
+        table0 = torch.from_numpy((0.1 * rng.randn(R, w)).astype(np.float32)).to(dev)
+        acc0 = torch.from_numpy((1.0 + rng.rand(R, w)).astype(np.float32)).to(dev)
+        out[what] = check_update(torch, au, what, table0, acc0, sidx, wg)
+        worst = max(worst, out[what]["max_abs_err"])
+        if what == "Zipf items":  # K4 once: the same touches in random order
             order = torch.from_numpy(rng.permutation(M)).to(dev)
             s, g = sidx[order].contiguous(), wg[order].contiguous()
-            t1, a1 = run(au.adagrad_update, s, g)
-            tp, ap = run(au.sorted_adagrad_update_plain, s, g)
+            t1, a1 = table0.clone(), acc0.clone()
+            au.adagrad_update(t1, a1, s, g, LR, "default")
+            tp, ap = table0.clone(), acc0.clone()
+            au.sorted_adagrad_update_plain(tp, ap, s, g, LR, "default")
+            t_tol, a_tol = update_tolerance(torch, table0, acc0, sidx, wg)
             err = max(float((t1 - tp).abs().max()), float((a1 - ap).abs().max()))
             check(bool(((t1 - tp).abs() <= t_tol).all() and ((a1 - ap).abs() <= a_tol).all()),
                   f"K4 (argsort + K1) equals plain within the same bound (max |d| {err:.3g})")
             worst = max(worst, err)
-        del t_tol, a_tol
+            del t_tol, a_tol
+        del sidx, wg, table0, acc0
         torch.cuda.empty_cache()
-    return worst
+    if dev.type == "cuda":
+        # The kernel stages gradient rows with 16-byte copies: a gradient
+        # view that starts 4 bytes into its allocation is copied by the
+        # wrapper (the same result as an aligned copy, bitwise), and a width
+        # that is not a multiple of 4 is refused.
+        sidx_np, wg_np = edge_touches(rng, 5000, 40, L)
+        sidx = torch.from_numpy(sidx_np).to(dev)
+        view = torch.empty(wg_np.size + 1, device=dev)[1:].view(wg_np.shape)
+        view.copy_(torch.from_numpy(wg_np))
+        table0 = torch.from_numpy((0.1 * rng.randn(5000, 40)).astype(np.float32)).to(dev)
+        acc0 = torch.from_numpy((1.0 + rng.rand(5000, 40)).astype(np.float32)).to(dev)
+        got, want = [(table0.clone(), acc0.clone()) for _ in range(2)]
+        au.sorted_adagrad_update(*got, sidx, view, LR, "default")
+        au.sorted_adagrad_update(*want, sidx, view.clone(), LR, "default")
+        check(view.data_ptr() % 16 != 0 and torch.equal(got[0], want[0])
+              and torch.equal(got[1], want[1]),
+              "K1 on a gradient view off a 16-byte boundary equals K1 on an aligned copy")
+        odd = torch.zeros((100, 37), device=dev)
+        try:
+            au.sorted_adagrad_update(odd, odd.clone(), sidx[:5].clamp(0, 99),
+                                     torch.zeros((5, 37), device=dev), LR)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "K1 refuses a table width that is not a multiple of 4 on the card")
+    sweep = {k: v["device_ms"] for k, v in out.items() if k.startswith("hot row")}
+    log(f"  K1 device ms by hot-row length: {json.dumps(sweep)}")
+    return {"worst": worst, "cases": out}
 
 
 def sums_tolerance(torch, sidx, wg, n_rows: int):
@@ -888,15 +1174,12 @@ def profiled_epoch(torch, train, model, seed: int) -> None:
     log(f"  profiled epoch: {wall_ms:.3f} ms wall (host clock), device busy {busy_ms:.3f} ms "
         f"over {len(spans)} device intervals, idle share {1 - busy_ms / wall_ms:.4f}")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
     top = sorted(
         (e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=dev_us, reverse=True,
+        key=_device_us, reverse=True,
     )[:12]
     log("  top device kernels of the epoch (name, calls, ms): " + json.dumps(
-        [(e.key[:60], e.count, dev_us(e) / 1e3) for e in top]))
+        [(e.key[:60], e.count, _device_us(e) / 1e3) for e in top]))
 
 
 def training_path(torch, seed: int) -> dict:
@@ -996,7 +1279,13 @@ def training_path(torch, seed: int) -> dict:
         sidx, wg = args[2].contiguous(), args[3].contiguous()
         M = sidx.shape[0]
         tw, aw = table.clone(), acc.clone()
-        k_ms = time_ms(torch, lambda: au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default"), reps=20)
+
+        def kernel():
+            au.sorted_adagrad_update(tw, aw, sidx, wg, LR, "default")
+
+        k_ms = time_ms(torch, kernel, reps=20)
+        split = device_ms(torch, kernel, reps=20)
+        enqueue_ms = host_ms(torch, kernel)
         p_ms = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, sidx, wg, LR, "default"), reps=10)
         tk, ak = table.clone(), acc.clone()
         au.sorted_adagrad_update(tk, ak, sidx, wg, LR, "default")
@@ -1008,13 +1297,16 @@ def training_path(torch, seed: int) -> dict:
               f"K1 on the step's {side}: kernel equals plain within the bound (max |d| {err:.3g})")
         runs_ = torch.unique_consecutive(sidx, return_counts=True)[1]
         distinct = int(runs_.numel())
-        bound = (4 * M * (W + 1) + 16 * W * distinct) / HBM_BYTES_PER_S * 1e3
-        rows[side] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "max_abs_err": err,
-                      "distinct": distinct, "hottest": int(runs_.max()), "M": M}
+        bound = update_bound_ms(M, W, distinct)
+        rows[side] = {"ms": k_ms, "device_ms": sum(split.values()), "device_split": split,
+                      "host_ms": enqueue_ms, "plain_ms": p_ms, "bound_ms": bound,
+                      "max_abs_err": err, "distinct": distinct, "hottest": int(runs_.max()),
+                      "M": M}
         if side == "items":
             order = torch.randperm(M, device=sidx.device)
             us, ug = sidx[order].contiguous(), wg[order].contiguous()
             k4_ms = time_ms(torch, lambda: au.adagrad_update(tw, aw, us, ug, LR, "default"), reps=20)
+            k4_split = device_ms(torch, lambda: au.adagrad_update(tw, aw, us, ug, LR, "default"))
             k4_plain = time_ms(torch, lambda: au.sorted_adagrad_update_plain(tw, aw, us, ug, LR, "default"), reps=10)
             t4, a4 = table.clone(), acc.clone()
             _, k4_launches = counted(au.adagrad_update, t4, a4, us, ug, LR, "default")
@@ -1023,7 +1315,8 @@ def training_path(torch, seed: int) -> dict:
                   "one K4 call launches K1 once")
             check(bool(((t4 - tp).abs() <= t_tol).all() and ((a4 - ap).abs() <= a_tol).all()),
                   f"K4 on the step's shuffled items equals plain within the bound")
-            rows["k4"] = {"ms": k4_ms, "plain_ms": k4_plain, "bound_ms": bound,
+            rows["k4"] = {"ms": k4_ms, "device_ms": sum(k4_split.values()),
+                          "device_split": k4_split, "plain_ms": k4_plain, "bound_ms": bound,
                           "launches": k4_launches["adagrad_update"], "max_abs_err": k4_err}
         del tw, aw, tk, ak, tp, ap, t_tol, a_tol
     log("  K1/K4 on the real step touches (ms, default precision): " + json.dumps(rows))
@@ -1360,7 +1653,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("rank_counts", "adagrad_update", "grad_sums", "warp_fit"):
+    for name in ("rank_counts", "grad_sums", "warp_fit"):  # adagrad_update's: phase 4
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -1376,7 +1669,7 @@ def main() -> int:
         rec["launches"] = launches[rec["name"]]
         check(rec["launches"] > 0, f"{rec['name']} launched on the serving path")
 
-    zipf_err = update_kernel_checks(torch, args.seed)
+    k1_cases = update_kernel_checks(torch, args.seed)
     k3_zipf_err = grad_sums_checks(torch, args.seed)
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
@@ -1390,9 +1683,12 @@ def main() -> int:
             "source": "lightfm_tpu_torch/csrc/adagrad_update.cu",
             "replaces": "lightfm_tpu/ops/pallas_update.py:234",
             "launches": k1_launches,
-            "max_abs_err": max(zipf_err, items["max_abs_err"], trained["rows"]["users"]["max_abs_err"]),
+            "max_abs_err": max(k1_cases["worst"], items["max_abs_err"],
+                               trained["rows"]["users"]["max_abs_err"]),
             "ms": items["ms"], "plain_ms": items["plain_ms"], "bound_ms": items["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
+            "device_ms": items["device_ms"], "distinct": items["distinct"],
+            "hottest": items["hottest"], "ms_zipf": k1_cases["cases"]["Zipf items"]["ms"],
         },
         {
             "name": "adagrad_update", "route": "cuda",

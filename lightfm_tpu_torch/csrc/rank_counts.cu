@@ -34,15 +34,20 @@
 //   float it loads: 8 x 8 gives 4 (a 4 x 8 tile gives 2.7 and left the
 //   FMA units waiting on shared memory).  Each accumulator gets exactly one
 //   FMA per k, in k order: the outer-product tile keeps row_dot's chain.
-// - k-major operands.  The wrapper hands over u_aug.T [Wa, U] and
-//   items_aug.T [Wa, ldi] (ldi = I rounded up to 4, zero columns), so a
-//   tile is Wa rows of contiguous, 16-byte-aligned floats.  The user tile
-//   is loaded once per block and stays resident; the item tile is staged
-//   in chunks of at most 80 k-rows, double-buffered with 16-byte
-//   cp.async.cg (zero-filled past ldi through cp.async's src-size), so the
-//   next chunk's copy overlaps this chunk's FMAs.  At Wa = 73, T = 10 a
-//   block takes 80,896 bytes of shared memory and 219 registers a thread:
-//   two blocks per SM.
+// - k-major operands.  The wrapper hands over u_aug.T [Wa, ldu] and
+//   items_aug.T [Wa, ldi] (ldu, ldi = U, I rounded up to 4, zero columns),
+//   so a tile is Wa rows of contiguous, 16-byte-aligned floats.  The item
+//   tile is staged in chunks of at most 80 k-rows, double-buffered with
+//   16-byte cp.async.cg (zero-filled past ldi through cp.async's src-size),
+//   so the next chunk's copy overlaps this chunk's FMAs.  The user tile is
+//   loaded once per block and stays resident while two blocks of it fit on
+//   an SM; at wider rows (stream_u, from Wa = 281 at t_pad 32) its chunks are
+//   staged beside the item chunks, in the same two buffers' turns, so a
+//   block's shared memory no longer grows with Wa and any width runs.  The
+//   accumulators stay in registers across the chunks of a tile either way,
+//   so every score is still row_dot's chain.  At Wa = 73, T = 10 a block
+//   takes 80,896 bytes of shared memory and 219 registers a thread: two
+//   blocks per SM.
 // - Counting.  After a tile's last chunk each thread compares its 8*TU
 //   scores with its users' thresholds (padded with +inf to TP, a multiple
 //   of 4, or TP = 1, 2), read from shared memory as float4, into int32
@@ -103,21 +108,21 @@ __device__ __forceinline__ void load_k(const float* a_s, const float* b_s, int k
   b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
 }
 
-// uT [Wa, U] and itT [Wa, ldi] are k-major; ts and counts [U, T] row-major.
-// Block (x, y) owns users [x*BU, x*BU + BU) and item tiles
+// uT [Wa, ldu] and itT [Wa, ldi] are k-major; ts and counts [U, T]
+// row-major.  Block (x, y) owns users [x*BU, x*BU + BU) and item tiles
 // [y*tiles_per_split, (y+1)*tiles_per_split); kc is the staged chunk's
-// k-rows.
+// k-rows; stream_u stages the user tile chunk by chunk with the items.
 template <int TU, int TP>
 __global__ void __launch_bounds__(kThreads, 2)
 rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
                    const float* __restrict__ ts, int* __restrict__ counts,
-                   int U, int I, int ldi, int Wa, int T, int kc,
-                   int tiles_per_split) {
+                   int U, int ldu, int I, int ldi, int Wa, int T, int kc,
+                   int tiles_per_split, int stream_u) {
   constexpr int BU = 16 * TU;
   extern __shared__ __align__(16) float smem[];
   float* ts_s = smem;             // [BU, TP]
-  float* u_s = ts_s + BU * TP;    // [Wa, BU]
-  float* it_s = u_s + Wa * BU;    // [2, kc, kItems]
+  float* u_s = ts_s + BU * TP;    // [Wa, BU] resident, [2, kc, BU] streamed
+  float* it_s = u_s + (stream_u ? 2 * kc : Wa) * BU;  // [2, kc, kItems]
 
   const int tid = threadIdx.x;
   const int ig = tid & 7;
@@ -130,7 +135,8 @@ rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
   const int n_steps = max(0, tile1 - tile0) * n_chunks;
 
   // Stage chunk q (item tile tile0 + q / n_chunks, k-rows from
-  // (q % n_chunks) * kc) into buffer q & 1.
+  // (q % n_chunks) * kc) into buffer q & 1, with the users' k-rows when
+  // they stream.
   auto stage = [&](int q) {
     const int k0 = (q % n_chunks) * kc;
     const int rows = min(kc, Wa - k0);
@@ -143,6 +149,16 @@ rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
       const float* src = in ? itT + (size_t)(k0 + r) * ldi + col0 + c : itT;
       cp_async16(dst + r * kItems + c, src, in ? 16 : 0);
     }
+    if (stream_u) {
+      float* udst = u_s + (q & 1) * kc * BU;
+      for (int x = tid; x < rows * (BU / 4); x += kThreads) {
+        const int r = x / (BU / 4);
+        const int c = (x - r * (BU / 4)) * 4;
+        const bool in = u0 + c < ldu;
+        const float* src = in ? uT + (size_t)(k0 + r) * ldu + u0 + c : uT;
+        cp_async16(udst + r * BU + c, src, in ? 16 : 0);
+      }
+    }
   };
 
   if (n_steps > 0) stage(0);
@@ -152,9 +168,11 @@ rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
     const int r = x / TP, t = x - r * TP;
     ts_s[x] = (u0 + r < U && t < T) ? ts[(size_t)(u0 + r) * T + t] : INFINITY;
   }
-  for (int x = tid; x < Wa * BU; x += kThreads) {
-    const int k = x / BU, c = x - k * BU;
-    u_s[x] = (u0 + c < U) ? uT[(size_t)k * U + u0 + c] : 0.0f;
+  if (!stream_u) {
+    for (int x = tid; x < Wa * BU; x += kThreads) {
+      const int k = x / BU, c = x - k * BU;
+      u_s[x] = (u0 + c < U) ? uT[(size_t)k * ldu + u0 + c] : 0.0f;
+    }
   }
 
   float acc[TU][8];
@@ -176,7 +194,7 @@ rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
     const int chunk = q % n_chunks;
     const int k0 = chunk * kc;
     const int rows = min(kc, Wa - k0);
-    const float* a_s = u_s + k0 * BU + ug * TU;
+    const float* a_s = (stream_u ? u_s + (q & 1) * kc * BU : u_s + k0 * BU) + ug * TU;
     const float* b_s = it_s + (q & 1) * kc * kItems + ig * 4;
     float a[TU], b[8];
     load_k<TU>(a_s, b_s, 0, a, b);
@@ -273,13 +291,15 @@ __global__ void pair_scores_kernel(const float* __restrict__ u_aug,
 
 template <int TU, int TP>
 cudaError_t launch_counts(const float* uT, const float* itT, const float* ts,
-                          int* counts, int U, int I, int ldi, int Wa, int T,
-                          int kc, int user_tiles, int item_splits,
-                          int tiles_per_split, cudaStream_t stream) {
+                          int* counts, int U, int ldu, int I, int ldi, int Wa,
+                          int T, int kc, int stream_u, int user_tiles,
+                          int item_splits, int tiles_per_split,
+                          cudaStream_t stream) {
   constexpr int BU = 16 * TU;
   // The layout ops/rank_counts.py::kernel_shape plans with.
+  const size_t u_rows = stream_u ? 2 * (size_t)kc : (size_t)Wa;
   const size_t bytes =
-      sizeof(float) * ((size_t)BU * TP + (size_t)Wa * BU + 2 * (size_t)kc * kItems);
+      sizeof(float) * ((size_t)BU * TP + u_rows * BU + 2 * (size_t)kc * kItems);
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         rank_counts_kernel<TU, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,7 +308,7 @@ cudaError_t launch_counts(const float* uT, const float* itT, const float* ts,
   }
   const dim3 grid((unsigned)user_tiles, (unsigned)item_splits);
   rank_counts_kernel<TU, TP><<<grid, kThreads, bytes, stream>>>(
-      uT, itT, ts, counts, U, I, ldi, Wa, T, kc, tiles_per_split);
+      uT, itT, ts, counts, U, ldu, I, ldi, Wa, T, kc, tiles_per_split, stream_u);
   return cudaGetLastError();
 }
 
@@ -300,17 +320,21 @@ const char* rank_counts_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// uT [Wa, U], itT [Wa, ldi] (ldi % 4 == 0, ldi >= I), ts/counts [U, T].
-// block_users and t_pad pick the template (128 users, TU = 8, with t_pad in
-// {1, 2, 4, 8, 12}; 64 users, TU = 4, with t_pad in {16, ..., 32}); the grid
-// is user_tiles x item_splits, each split tiles_per_split 64-item tiles.
-// Blocks add into counts, which must hold zeros.  Returns a cudaError_t code.
+// uT [Wa, ldu] (ldu % 4 == 0, ldu >= U), itT [Wa, ldi] (ldi % 4 == 0,
+// ldi >= I), ts/counts [U, T].  block_users and t_pad pick the template (128
+// users, TU = 8, with t_pad in {1, 2, 4, 8, 12}; 64 users, TU = 4, with t_pad
+// in {16, ..., 32}); stream_u != 0 stages the user tile in chunks of kc
+// k-rows instead of keeping it resident; the grid is user_tiles x
+// item_splits, each split tiles_per_split 64-item tiles.  Blocks add into
+// counts, which must hold zeros.  Returns a cudaError_t code.
 int rank_counts_launch(const float* uT, const float* itT, const float* ts,
-                       int* counts, int U, int I, int ldi, int Wa, int T,
-                       int block_users, int t_pad, int kc, int user_tiles,
-                       int item_splits, int tiles_per_split, void* stream) {
+                       int* counts, int U, int ldu, int I, int ldi, int Wa,
+                       int T, int block_users, int t_pad, int kc, int stream_u,
+                       int user_tiles, int item_splits, int tiles_per_split,
+                       void* stream) {
   if (U <= 0 || T <= 0) return 0;
-  const bool ok = I >= 0 && Wa > 0 && ldi >= I && ldi % 4 == 0 && t_pad >= T &&
+  const bool ok = I >= 0 && Wa > 0 && ldu >= U && ldu % 4 == 0 && ldi >= I &&
+                  ldi % 4 == 0 && t_pad >= T &&
                   kc > 0 && kc <= Wa && user_tiles > 0 && item_splits > 0 &&
                   (long long)user_tiles * block_users >= U &&
                   (long long)item_splits * tiles_per_split * kItems >= I;
@@ -318,9 +342,9 @@ int rank_counts_launch(const float* uT, const float* itT, const float* ts,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RC_CASE(TU, TP)                                                      \
   if (block_users == 16 * (TU) && t_pad == (TP))                             \
-    return (int)launch_counts<TU, TP>(uT, itT, ts, counts, U, I, ldi, Wa, T, \
-                                      kc, user_tiles, item_splits,           \
-                                      tiles_per_split, s);
+    return (int)launch_counts<TU, TP>(uT, itT, ts, counts, U, ldu, I, ldi,   \
+                                      Wa, T, kc, stream_u, user_tiles,       \
+                                      item_splits, tiles_per_split, s);
   RC_CASE(8, 1) RC_CASE(8, 2) RC_CASE(8, 4) RC_CASE(8, 8) RC_CASE(8, 12)
   RC_CASE(4, 16) RC_CASE(4, 20) RC_CASE(4, 24) RC_CASE(4, 28) RC_CASE(4, 32)
 #undef RC_CASE

@@ -29,6 +29,9 @@ from lightfm_tpu_torch.ops import _build
 from lightfm_tpu_torch.ops.representation import round_to_bf16
 
 PRECISIONS = ("highest", "default")
+# Touch positions of one pass-A segment (kSeg in the source; the launcher
+# refuses a scratch sized for another).
+SEGMENT = 64
 
 launches = {"sorted_adagrad_update": 0, "adagrad_update": 0}
 
@@ -38,12 +41,29 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def scratch_shape(M: int, W: int) -> tuple[int, int, int]:
+    """The scratch one K1 call over ``M`` sorted touches of a ``W``-wide
+    table writes and reads: fp32 [segments, 2, 2W], one (sum wg | sum wg^2)
+    row for the run that enters each SEGMENT-touch segment from the one
+    before and one for the run that leaves it into the next."""
+    if M < 1 or W < 1:
+        raise ValueError(f"a K1 launch needs M >= 1 and W >= 1, got M={M}, W={W}")
+    return (-(-M // SEGMENT), 2, 2 * W)
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if its data starts on a 16-byte boundary (the kernel stages
+    gradient rows with 16-byte copies), else a fresh copy, which does."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("adagrad_update")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.c_longlong
         lib.sorted_adagrad_update_launch.argtypes = [
-            p, p, p, p, ctypes.c_longlong, i, i, ctypes.c_float, i, p,
+            p, p, p, p, p, ll, i, i, ctypes.c_float, i, ll, p,
         ]
         lib.sorted_adagrad_update_launch.restype = i
         lib.adagrad_update_error_string.argtypes = [i]
@@ -112,18 +132,25 @@ def sorted_adagrad_update(
     """K1: in-place adagrad update over touches whose rows ``sidx`` (int32
     [M]) are NON-DECREASING, with gradients ``swg`` f32 [M, W] in the same
     order.  The kernel relies on the order (a row's touches must form one
-    run); it is not checked on the card."""
+    run); it is not checked on the card.  On the card it takes tables whose
+    width W is a multiple of 4 (every table the model makes: its width is
+    rounded to 8).  One call runs two grids (the segment pass and the
+    ordered combine) and counts as one launch."""
     _check_args(table, acc, sidx, swg, precision)
     if table.device.type == "cpu":
         return sorted_adagrad_update_plain(table, acc, sidx, swg, learning_rate, precision)
     R, W = table.shape
     M = sidx.shape[0]
-    if M == 0 or R == 0:
+    if M == 0 or R == 0 or W == 0:
         return table, acc
+    if W % 4:
+        raise ValueError(f"the K1 kernel takes tables whose width is a multiple of 4, got {W}")
     lib = _lib()
+    swg = aligned(swg)
+    part = torch.empty(scratch_shape(M, W), dtype=torch.float32, device=table.device)
     code = lib.sorted_adagrad_update_launch(
-        table.data_ptr(), acc.data_ptr(), sidx.data_ptr(), swg.data_ptr(),
-        M, R, W, float(learning_rate), int(precision == "default"),
+        table.data_ptr(), acc.data_ptr(), sidx.data_ptr(), swg.data_ptr(), part.data_ptr(),
+        M, R, W, float(learning_rate), int(precision == "default"), part.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
     )
     if code:

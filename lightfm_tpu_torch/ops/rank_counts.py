@@ -13,9 +13,11 @@ lanes x 2 x clock (about 67 TFLOP/s on an H100 SXM at 700 W); the bytes
 The kernel is a register-tiled fp32 scorer: each thread keeps an 8 (or 4)
 users x 8 items tile of scores in registers, so four float4 shared-memory
 loads feed 64 FMAs, over k-major operands this wrapper stages
-(``u_aug.T``, ``items_aug.T`` padded to a multiple of 4 columns), with the
-item tiles double-buffered by ``cp.async``.  Every score keeps row_dot's
-FMA chain, bitwise what :func:`pair_scores` computes.  The grid is (user
+(``u_aug.T``, ``items_aug.T``, each padded to a multiple of 4 columns),
+with the item tiles double-buffered by ``cp.async``.  The user tile stays
+resident in shared memory, or, at rows too wide for two blocks an SM, is
+staged chunk by chunk beside the items, so any width runs.  Every score
+keeps row_dot's FMA chain, bitwise what :func:`pair_scores` computes.  The grid is (user
 tiles x item splits); :func:`launch_plan` picks the split so that the card
 fills at any user count.  See the source for the layout.
 
@@ -45,8 +47,6 @@ BLOCK_ITEMS = 64
 MAX_CHUNK_ROWS = 80
 MAX_BLOCK_SMEM = 232_448
 SM_SMEM = 233_472
-# Widest augmented row the resident user tile admits (64 users, t_pad 32).
-MAX_WA = (MAX_BLOCK_SMEM - 4 * (64 * 32 + 2 * MAX_CHUNK_ROWS * BLOCK_ITEMS)) // (4 * 64)
 
 launches = {"rank_counts": 0, "pair_scores": 0}
 
@@ -57,6 +57,7 @@ class KernelShape(NamedTuple):
     chunk_rows: int  # k-rows of a staged item chunk
     smem_bytes: int
     blocks_per_sm: int
+    stream_users: bool  # the user tile staged chunk by chunk, not resident
 
 
 class LaunchPlan(NamedTuple):
@@ -73,19 +74,27 @@ def kernel_shape(T: int, Wa: int) -> KernelShape:
     """The template and shared-memory layout of one launch.  An 8-user
     thread tile keeps 8 x t_pad counters and 64 scores in registers, so it
     takes t_pad <= 12 and rows up to 128 wide (two blocks per SM); wider
-    slot counts or rows take the 4-user tile (t_pad >= 16)."""
+    slot counts or rows take the 4-user tile (t_pad >= 16).  The user tile
+    stays resident while two blocks of it fit on an SM; past that it is
+    staged in two buffers of ``chunk_rows`` k-rows, as the items are, so
+    two blocks fit at any ``Wa``."""
     if not 1 <= T <= MAX_T:
         raise ValueError(f"rank_counts kernel takes 1 <= T <= {MAX_T}, got {T}")
-    if not 1 <= Wa <= MAX_WA:
-        raise ValueError(f"rank_counts kernel takes 1 <= Wa <= {MAX_WA}, got {Wa}")
+    if Wa < 1:
+        raise ValueError(f"rank_counts kernel takes Wa >= 1, got {Wa}")
     t_pad = T if T <= 2 else -(-T // 4) * 4
     block_users = 128
     if t_pad > 12 or Wa > 128:
         block_users, t_pad = 64, max(t_pad, 16)
     n_chunks = -(-Wa // MAX_CHUNK_ROWS)
     kc = -(-Wa // n_chunks)
-    smem = 4 * (block_users * t_pad + Wa * block_users + 2 * kc * BLOCK_ITEMS)
-    return KernelShape(block_users, t_pad, kc, smem, min(2, SM_SMEM // (smem + 1024)))
+
+    def smem(user_rows):
+        return 4 * (block_users * t_pad + user_rows * block_users + 2 * kc * BLOCK_ITEMS)
+
+    stream = SM_SMEM // (smem(Wa) + 1024) < 2
+    size = smem(2 * kc if stream else Wa)
+    return KernelShape(block_users, t_pad, kc, size, min(2, SM_SMEM // (size + 1024)), stream)
 
 
 @functools.lru_cache(maxsize=256)
@@ -128,15 +137,19 @@ def plan_for(U: int, I: int, T: int, Wa: int, device) -> tuple[KernelShape, Laun
     return shape, plan
 
 
+def _k_major(x: torch.Tensor) -> torch.Tensor:
+    """``x.T`` with its rows padded by zero columns to a multiple of 4
+    (16-byte-aligned rows for ``cp.async``)."""
+    n, Wa = x.shape
+    out = x.new_zeros((Wa, -(-n // 4) * 4))
+    out[:, :n] = x.T
+    return out
+
+
 def stage_k_major(u_aug: torch.Tensor, items_aug: torch.Tensor):
-    """The kernel's operands: ``u_aug.T`` [Wa, U] and ``items_aug.T`` with
-    its rows padded by zero columns to a multiple of 4 (16-byte-aligned
-    rows for ``cp.async``), [Wa, ldi]."""
-    I, Wa = items_aug.shape
-    ldi = -(-I // 4) * 4
-    it_t = items_aug.new_zeros((Wa, ldi))
-    it_t[:, :I] = items_aug.T
-    return u_aug.T.contiguous(), it_t
+    """The kernel's operands: ``u_aug.T`` [Wa, ldu] and ``items_aug.T``
+    [Wa, ldi], each padded to a multiple of 4 columns."""
+    return _k_major(u_aug), _k_major(items_aug)
 
 
 def reset_launches() -> None:
@@ -148,7 +161,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("rank_counts")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rank_counts_launch.argtypes = [p, p, p, p] + [i] * 11 + [p]
+        lib.rank_counts_launch.argtypes = [p, p, p, p] + [i] * 13 + [p]
         lib.rank_counts_launch.restype = i
         lib.pair_scores_launch.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.pair_scores_launch.restype = i
@@ -209,7 +222,7 @@ def rank_counts(
 
     ``u_aug`` f32 [U, Wa], ``items_aug`` f32 [I, Wa] (pad rows score -inf),
     ``ts`` f32 [U, T] (+inf in invalid slots, which then count 0).  On the
-    card the kernel takes T <= 32, Wa <= ``MAX_WA`` and any U or I.
+    card the kernel takes T <= 32 and any U, I or Wa.
     """
     dev = u_aug.device
     _check("u_aug", u_aug, torch.float32, 2, dev)
@@ -228,14 +241,15 @@ def rank_counts(
         raise ValueError(f"rank_counts runs on CUDA or CPU tensors, not {dev}")
     if U == 0 or T == 0 or I == 0:
         return torch.zeros((U, T), dtype=torch.float32, device=dev)
-    shape, plan = plan_for(U, I, T, Wa, dev)  # raises for T > MAX_T or Wa > MAX_WA
+    shape, plan = plan_for(U, I, T, Wa, dev)  # raises for T > MAX_T
     counts = torch.zeros((U, T), dtype=torch.int32, device=dev)  # blocks add into it
     u_t, it_t = stage_k_major(u_aug, items_aug)
     lib = _lib()
     code = lib.rank_counts_launch(
         u_t.data_ptr(), it_t.data_ptr(), ts.data_ptr(), counts.data_ptr(),
-        U, I, it_t.shape[1], Wa, T, shape.block_users, shape.t_pad, shape.chunk_rows,
-        plan.user_tiles, plan.item_splits, plan.tiles_per_split, _stream(dev),
+        U, u_t.shape[1], I, it_t.shape[1], Wa, T, shape.block_users, shape.t_pad,
+        shape.chunk_rows, int(shape.stream_users), plan.user_tiles, plan.item_splits,
+        plan.tiles_per_split, _stream(dev),
     )
     _check_launch(lib, code, "rank_counts")
     launches["rank_counts"] += 1

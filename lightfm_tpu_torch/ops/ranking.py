@@ -12,7 +12,8 @@ with the fused tables (W = table_width(D) columns, bias last) both are
 Three paths, dispatched per degree tier in :func:`predict_ranks_padded`:
 
 - :func:`_ranks_fused`: tensors on a CUDA device and at most
-  ``COUNT_T_LIMIT`` test items per user.  The hand-written kernels of
+  ``COUNT_T_LIMIT`` test items per user, at any width
+  (:func:`_fused_tier`).  The hand-written kernels of
   :mod:`lightfm_tpu_torch.ops.rank_counts` count without materialising
   scores; test and excluded-item scores come from ``pair_scores``, bitwise
   equal to the counting kernel's own, so the self match is removed by an
@@ -401,6 +402,14 @@ def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None
     return tiers
 
 
+def _fused_tier(T: int, device_type: str) -> bool:
+    """Whether a tier of ``T`` test slots ranks through the kernels: on a
+    CUDA device, within the counting kernel's slots, at any table width, as
+    the reference sends every such tier to its fused kernel on the TPU.
+    Other tiers take the flat or blocked matmul paths."""
+    return device_type == "cuda" and T <= COUNT_T_LIMIT
+
+
 def predict_ranks_padded(
     state: ModelState,
     user_feats,
@@ -430,7 +439,7 @@ def predict_ranks_padded(
             state, user_feats, item_feats,
             tier.user_ids, tier.test_idx, tier.test_valid, tier.train_idx,
         )
-        if T <= COUNT_T_LIMIT and device.type == "cuda":
+        if _fused_tier(T, device.type):
             # Kernel-fused path: scores never reach device memory; any
             # catalog size.
             ranks = _ranks_fused(*args, n_items=int(n_items), item_block=2048)

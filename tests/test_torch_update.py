@@ -59,7 +59,7 @@ def _case(seed, R, W, M, hot=True, sentinels=0, zero_every=11):
 
 def _tolerances(table, acc, idx, wg):
     R = table.shape[0]
-    ok = idx < R
+    ok = (idx >= 0) & (idx < R)
     counts = np.bincount(idx[ok], minlength=R)[:, None].astype(np.float64)
     abs_sum = np.zeros(table.shape)
     sq_sum = np.zeros(table.shape)
@@ -199,3 +199,182 @@ def test_wrappers_check_arguments_and_count_no_cpu_launch():
     au.adagrad_update(table, acc, idx, wg, LR)
     # Plain versions are not kernel launches.
     assert au.launches == {"sorted_adagrad_update": 0, "adagrad_update": 0}
+
+
+# --- the two-pass kernel's plan and bookkeeping -----------------------------
+# The card's kernel cuts the M sorted touches into segments of au.SEGMENT
+# positions (pass A) and adds the partial sums of the runs that cross a
+# segment edge in an ordered second pass (pass B).  The kernel runs only on
+# the card; its launch plan and a numpy walk of its segments and partials
+# are held here.
+
+L = au.SEGMENT
+
+
+@pytest.mark.parametrize("W", [8, 40, 72, 136])
+@pytest.mark.parametrize("M", [1, L - 1, L, L + 1, 131_072])
+def test_scratch_shape(M, W):
+    segments, slots, width = au.scratch_shape(M, W)
+    assert (segments - 1) * L < M <= segments * L  # every touch, once
+    assert (slots, width) == (2, 2 * W)  # entering and leaving run: (sum wg | sum wg^2)
+    with pytest.raises(ValueError):
+        au.scratch_shape(0, W)
+
+
+def test_aligned_copies_only_a_misaligned_view():
+    buf = torch.arange(4 * 40 + 1, dtype=torch.float32)
+    whole = buf[:-1].view(4, 40)
+    assert au.aligned(whole) is whole
+    view = buf[1:].view(4, 40)  # 4 bytes past the allocation's start
+    got = au.aligned(view)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous() and torch.equal(got, view)
+
+
+# Pass B's block: the fan-in of the fixed tree a run of more than 32
+# partials is added in (kWarps in the source).
+_WARPS = 8
+
+
+def _two_pass(table, acc, idx, wg, precision):
+    """A numpy walk of the kernel's bookkeeping, in float32 and in the
+    kernel's summation orders: pass A sums every run of a segment in touch
+    order and applies the runs that begin and end inside it; the run that
+    enters the segment and the one that leaves it become partial rows (slots
+    0 and 1 of a NaN-filled scratch, so a slot read before it is written
+    shows).  Pass B: the segment where a leaving run starts adds the run's
+    partials, in order for at most 32 of them, else in the block's tree
+    (warp w sums partials w, w + 8, ...; warp sums added in warp order).
+    Returns the updated copies and how many runs took each path."""
+    table, acc = table.copy(), acc.copy()
+    R, W = table.shape
+    M = idx.shape[0]
+    g = wg.astype(np.float32)
+    g2 = g * g
+    if precision == "default":
+        g, g2 = _bf16_np(g), _bf16_np(g2)
+    n_seg = -(-M // L)
+    part = np.full((n_seg, 2, 2 * W), np.nan, np.float32)
+    lr = np.float32(LR)
+    paths = {"inside": 0, "warp": 0, "block": 0}
+
+    def apply(r, s, s2):
+        a = acc[r].copy()
+        step = (lr * (np.float32(1) / np.sqrt(a))) * s
+        table[r] = table[r] - step
+        acc[r] = a + s2
+
+    for seg in range(n_seg):
+        j0 = seg * L
+        ids = idx[j0 : j0 + L]
+        n = ids.shape[0]
+        starts = [0] + [i for i in range(1, n) if ids[i] != ids[i - 1]] + [n]
+        entered = j0 > 0 and idx[j0 - 1] == ids[0]
+        leaves = j0 + n < M and idx[j0 + n] == ids[-1]
+        for k in range(len(starts) - 1):
+            r = ids[starts[k]]
+            if r < 0 or r >= R:
+                continue
+            s = np.zeros(W, np.float32)
+            s2 = np.zeros(W, np.float32)
+            for p in range(j0 + starts[k], j0 + starts[k + 1]):
+                s += g[p]
+                s2 += g2[p]
+            head, tail = k == 0 and entered, k == len(starts) - 2 and leaves
+            if head or tail:
+                part[seg, 0 if head else 1] = np.concatenate([s, s2])
+            else:
+                apply(r, s, s2)
+                paths["inside"] += 1
+    for seg in range(n_seg - 1):
+        end = (seg + 1) * L
+        r = idx[end - 1]
+        if not (0 <= r < R and idx[end] == r) or (seg > 0 and idx[seg * L - 1] == r):
+            continue
+        n_parts = 1
+        while seg + n_parts < n_seg and idx[(seg + n_parts) * L] == r:
+            n_parts += 1
+        rows = [part[seg, 1]] + [part[seg + p, 0] for p in range(1, n_parts)]
+        if n_parts <= 32:
+            tot = np.zeros(2 * W, np.float32)
+            for row in rows:
+                tot = tot + row
+            paths["warp"] += 1
+        else:
+            warps = _WARPS
+            sums = []
+            for w in range(warps):
+                acc_w = np.zeros(2 * W, np.float32)
+                for row in rows[w::warps]:
+                    acc_w = acc_w + row
+                sums.append(acc_w)
+            tot = sums[0]
+            for acc_w in sums[1:]:
+                tot = tot + acc_w
+            paths["block"] += 1
+        apply(r, tot[:W], tot[W:])
+    return (table, acc), paths
+
+
+def _runs(*runs):
+    """Sorted touches from (row, length) runs."""
+    return np.concatenate([np.full(n, r, np.int32) for r, n in runs])
+
+
+_R = 500
+_WALK_CASES = {
+    # Runs of exactly L from two edges (they end on edges), L - 1 and L + 1
+    # from edges, a run of 1; the run of L + 1 crosses one edge.
+    "runs-end-on-edges": (_runs((3, L), (4, L), (5, L - 1), (6, 1), (7, L + 1), (8, L - 1)),
+                          {"inside": 5, "warp": 1}),
+    "run-crosses-one-edge": (_runs((1, 7), (2, L - 10), (3, 30), (4, 37)),
+                             {"inside": 3, "warp": 1}),
+    "run-crosses-many-edges": (_runs((1, 30), (2, 5 * L), (3, 34)), {"inside": 2, "warp": 1}),
+    "run-crosses-40-edges": (_runs((1, 5), (2, 40 * L), (3, 11)), {"inside": 2, "block": 1}),
+    "whole-batch-one-row": (_runs((9, 3 * L + 17)), {"inside": 0, "warp": 1}),
+    # Negative rows sort first and rows >= R last; both are ignored.
+    "sentinel-runs-cross-edges": (
+        _runs((-3, L + 5), (-1, L - 2), (10, 3), (11, L), (_R, L + 9), (_R + 4, 2 * L + 1)),
+        {"inside": 1, "warp": 1},
+    ),
+    "ragged-M": (None, {}),
+}
+
+
+def _walk_case(name, W=8):
+    rng = np.random.RandomState(11)
+    idx, want_paths = _WALK_CASES[name]
+    if idx is None:  # M not a multiple of L: random runs of 1 to 150 touches
+        lengths = rng.randint(1, 151, 60)
+        idx = _runs(*zip(np.sort(rng.choice(_R, 60, replace=False)), lengths))
+        assert idx.shape[0] % L
+    table = rng.randn(_R, W).astype(np.float32)
+    acc = (1.0 + rng.rand(_R, W)).astype(np.float32)
+    wg = rng.randn(idx.shape[0], W).astype(np.float32)
+    wg[::7] = 0.0
+    return table, acc, idx.astype(np.int32), wg, want_paths
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("name", list(_WALK_CASES))
+def test_two_pass_walk_matches_plain_and_jax(name, precision):
+    table, acc, idx, wg, want_paths = _walk_case(name)
+    got, paths = _two_pass(table, acc, idx, wg, precision)
+    for path, n in want_paths.items():
+        assert paths[path] == n, paths  # the case takes the path it is for
+    assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()  # no unwritten slot read
+    tol = _tolerances(table, acc, idx, wg)
+    _assert_close(got, _port(au.sorted_adagrad_update, table, acc, idx, wg, precision), tol)
+    keep = (idx >= 0) & (idx < _R)
+    untouched = np.setdiff1d(np.arange(_R), idx[keep])
+    assert np.array_equal(got[0][untouched], table[untouched])
+    assert np.array_equal(got[1][untouched], acc[untouched])
+    if precision == "highest":
+        # The TPU kernel's contract ignores rows >= R; negative rows are the
+        # port's own sentinels, so they are left out of its input.
+        nonneg = idx >= 0
+        pallas = sorted_adagrad_update_pallas(
+            jnp.asarray(table), jnp.asarray(acc), jnp.asarray(idx[nonneg]),
+            jnp.asarray(wg[nonneg]), learning_rate=LR, interpret=True,
+            precision=jax.lax.Precision.HIGHEST,
+        )
+        _assert_close(got, pallas, tol)
