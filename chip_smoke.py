@@ -15,7 +15,7 @@ adagrad update kernel (K1, and K4 over it) against its plain version on
 Zipf, uniform and hot-row touches at the training step's shape and on
 touches laid out against the kernel's segments at four widths, with
 CUDA-event, profiler and host times for each, the gradient-sums kernel
-(K3) at the training step's shape, and trains with ``LightFM.fit`` at the
+(K3) on the same touch layouts, and trains with ``LightFM.fit`` at the
 ``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
 users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
 epochs with a train-sample AUC guard, a same-seed determinism check, one
@@ -708,6 +708,23 @@ def edge_touches(rng, R: int, W: int, L: int):
     return rows, (0.1 * rng.randn(rows.size, W)).astype(np.float32)
 
 
+def touch_cases(rng, M: int, W: int, L: int) -> list:
+    """The touch layouts phases 4 (K1) and 4b (K3) run, as (name, table
+    rows, width, maker): Zipf touches over the item and the user table,
+    uniform touches, one hot row of n touches for n from 1 to all M, all at
+    M touches of width W; then touches laid out against the kernels'
+    segments of L at W = 8, 40, 72 and 136."""
+    cases = [("Zipf items", TRAIN_ITEMS, W, lambda: zipf_touches(rng, M, TRAIN_ITEMS, W)),
+             ("Zipf users", TRAIN_USERS, W, lambda: zipf_touches(rng, M, TRAIN_USERS, W)),
+             ("uniform items", TRAIN_ITEMS, W, lambda: uniform_touches(rng, M, TRAIN_ITEMS, W))]
+    cases += [(f"hot row n={n}", TRAIN_ITEMS, W,
+               lambda n=n: uniform_touches(rng, M, TRAIN_ITEMS, W, n_hot=n))
+              for n in sorted({1, 64, 65, 4096, 65536, M}) if n <= M]
+    cases += [(f"segment edges W={w}", 5000, w, lambda w=w: edge_touches(rng, 5000, w, L))
+              for w in (8, 40, 72, 136)]
+    return cases
+
+
 def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
@@ -855,16 +872,8 @@ def update_kernel_checks(torch, seed: int) -> dict:
     check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in ptxas if "spill" in ln),
           f"ptxas: no adagrad_update function spills ({len(ptxas)} lines)")
 
-    cases = [("Zipf items", TRAIN_ITEMS, W, lambda: zipf_touches(rng, M, TRAIN_ITEMS, W)),
-             ("Zipf users", TRAIN_USERS, W, lambda: zipf_touches(rng, M, TRAIN_USERS, W)),
-             ("uniform items", TRAIN_ITEMS, W, lambda: uniform_touches(rng, M, TRAIN_ITEMS, W))]
-    cases += [(f"hot row n={n}", TRAIN_ITEMS, W,
-               lambda n=n: uniform_touches(rng, M, TRAIN_ITEMS, W, n_hot=n))
-              for n in sorted({1, 64, 65, 4096, 65536, M}) if n <= M]
-    cases += [(f"segment edges W={w}", 5000, w, lambda w=w: edge_touches(rng, 5000, w, L))
-              for w in (8, 40, 72, 136)]
     out, worst = {}, 0.0
-    for what, R, w, make in cases:
+    for what, R, w, make in touch_cases(rng, M, W, L):
         sidx_np, wg_np = make()
         sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
         table0 = torch.from_numpy((0.1 * rng.randn(R, w)).astype(np.float32)).to(dev)
@@ -921,7 +930,7 @@ def sums_tolerance(torch, sidx, wg, n_rows: int):
     n_r terms (wg, and wg^2 in the second half) in fp32 in its own order, so
     each is within (n_r + 1) * 2^-23 * sum|terms| of the exact sum; twice
     that bounds their difference."""
-    keep = sidx < n_rows
+    keep = (sidx >= 0) & (sidx < n_rows)
     rows = sidx[keep].long()
     g = wg[keep].double()
     n = torch.zeros(n_rows, dtype=torch.float64, device=wg.device)
@@ -931,17 +940,32 @@ def sums_tolerance(torch, sidx, wg, n_rows: int):
     return 2 * (n[:, None] + 1) * 2.0**-23 * terms
 
 
-def check_grad_sums(torch, gs, sidx, wg, n_rows: int, what: str) -> float:
-    """K3 against its plain version on one set of touches, at both
+def sums_bound_ms(M: int, W: int, n_rows: int) -> float:
+    """K3's least time: the touches (ids and gradients) read once and the
+    whole [n_rows, 2W] output written once."""
+    return (4 * M * (W + 1) + 8 * W * n_rows) / HBM_BYTES_PER_S * 1e3
+
+
+def check_grad_sums(torch, gs, sidx, wg, n_rows: int, what: str, reps: int = 20) -> dict:
+    """K3 against its plain version on one set of sorted touches, at both
     precisions: two launches bitwise equal, within the summation-order
-    bound, untouched rows exactly 0, out-of-range touches ignored.  Returns
-    the largest difference."""
+    bound, untouched rows exactly 0, and out-of-range touches ignored (other
+    gradients on them change nothing, bitwise).  Returns the case's record
+    at "default": the largest difference, the kernel's CUDA-event time back
+    to back (``ms``), its device time from the profiler by kernel
+    (``device_ms``), the host time to enqueue a call, the plain version's
+    time, the library call's (``zeros`` + ``index_add_`` of ``[wg | wg^2]``)
+    and the bound."""
+    M, W = wg.shape
     tol = sums_tolerance(torch, sidx, wg, n_rows)
-    in_range = sidx < n_rows
+    in_range = (sidx >= 0) & (sidx < n_rows)
+    runs = torch.unique_consecutive(sidx[in_range], return_counts=True)[1]
     untouched = torch.ones(n_rows, dtype=torch.bool, device=sidx.device)
     untouched[sidx[in_range].long()] = False
+    other = wg.clone()
+    other[~in_range] = 3 * other[~in_range] + 1
     worst = 0.0
-    for prec in ("highest", "default"):
+    for prec in gs.PRECISIONS:
         a = gs.sorted_grad_sums(sidx, wg, n_rows, prec)
         b = gs.sorted_grad_sums(sidx, wg, n_rows, prec)
         check(torch.equal(a, b), f"K3 {what} {prec}: two launches are bitwise equal")
@@ -952,37 +976,95 @@ def check_grad_sums(torch, gs, sidx, wg, n_rows: int, what: str) -> float:
               f"(max |d| {float(d.max()):.3g})")
         check(not bool(a[untouched].any()), f"K3 {what} {prec}: untouched rows are exactly 0")
         if not bool(in_range.all()):
-            c = gs.sorted_grad_sums(sidx[in_range].contiguous(), wg[in_range].contiguous(),
-                                    n_rows, prec)
-            check(torch.equal(a, c), f"K3 {what} {prec}: out-of-range touches are ignored")
-    return worst
+            c = gs.sorted_grad_sums(sidx, other, n_rows, prec)
+            check(torch.equal(a, c), f"K3 {what} {prec}: out-of-range touches are ignored "
+                                     "(other gradients on them change nothing, bitwise)")
+    del tol, other, a, b, d
+
+    def kernel():
+        gs.sorted_grad_sums(sidx, wg, n_rows, "default")
+
+    rows = sidx[in_range].long()
+    both = torch.cat([wg[in_range], wg[in_range] * wg[in_range]], dim=1)
+
+    def library():
+        torch.zeros((n_rows, 2 * W), dtype=torch.float32, device=wg.device).index_add_(0, rows, both)
+
+    split = device_ms(torch, kernel)
+    distinct = int(runs.numel())
+    rec = {
+        "M": M, "W": W, "R": n_rows, "distinct": distinct,
+        "hottest": int(runs.max()) if distinct else 0,
+        "ms": time_ms(torch, kernel, reps=reps), "device_ms": sum(split.values()),
+        "device_split": split, "host_ms": host_ms(torch, kernel),
+        "plain_ms": time_ms(torch, lambda: gs.sorted_grad_sums_plain(
+            sidx, wg, n_rows, "default"), reps=5),
+        "library_ms": time_ms(torch, library, reps=reps),
+        "bound_ms": sums_bound_ms(M, W, n_rows), "max_abs_err": worst,
+    }
+    log(f"  K3 {what}: " + json.dumps(rec))
+    return rec
 
 
 def grad_sums_checks(torch, seed: int) -> dict:
-    """Phase 4b: K3 against its plain version at the hybrid step's shape
-    (M = 131,072 touches, W = 72, n_rows = 100,000) on Zipf touches;
-    all-out-of-range and empty calls.  Returns the largest difference."""
+    """Phase 4b: K3 against its plain version (``check_grad_sums``) at the
+    hybrid step's shape (M = 131,072 touches, W = 72) on Zipf touches over
+    100,000 and 200,000 rows, on uniform touches, and with one hot row of n
+    touches for n from 1 to all M; then on touches laid out against the
+    kernel's segments at W = 8, 40, 72 and 136; all-out-of-range and empty
+    calls; a misaligned gradient view and the W % 4 refusal once.  Returns
+    the largest difference and every case's record."""
+    from lightfm_tpu_torch.ops import _build
     from lightfm_tpu_torch.ops import grad_sums as gs
     from lightfm_tpu_torch.state import table_width
 
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(seed + 5)
-    M, W, R = TRAIN_BATCH, table_width(D), TRAIN_ITEMS
-    log(f"phase 4b: gradient-sums kernel (K3) vs plain at M={M} W={W} n_rows={R}, Zipf touches")
-    sidx_np, wg_np = zipf_touches(rng, M, R, W)
+    M, W, L = TRAIN_BATCH, table_width(D), gs.SEGMENT
+    log(f"phase 4b: gradient-sums kernel (K3) vs plain, segments of {L} touches")
+    ptxas = [ln.strip() for ln in _build.build_log("grad_sums").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for ln in ptxas:
+        log(f"  ptxas grad_sums: {ln}")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in ptxas if "spill" in ln),
+          f"ptxas: no grad_sums function spills ({len(ptxas)} lines)")
+
+    out, worst = {}, 0.0
+    for what, R, w, make in touch_cases(rng, M, W, L):
+        sidx_np, wg_np = make()
+        sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
+        out[what] = check_grad_sums(torch, gs, sidx, wg, R, what)
+        worst = max(worst, out[what]["max_abs_err"])
+        del sidx, wg
+        torch.cuda.empty_cache()
+    sweep = {k: (v["ms"], v["device_ms"]) for k, v in out.items() if k.startswith("hot row")}
+    log(f"  K3 (events ms, device ms) by hot-row length: {json.dumps(sweep)}")
+
+    sidx_np, wg_np = edge_touches(rng, 5000, 40, L)
     sidx, wg = torch.from_numpy(sidx_np).to(dev), torch.from_numpy(wg_np).to(dev)
-    runs = torch.unique_consecutive(sidx[sidx < R], return_counts=True)[1]
-    log(f"  {runs.numel()} distinct rows, hottest row {int(runs.max())} touches, "
-        f"{int((sidx >= R).sum())} out-of-range touches")
-    worst = check_grad_sums(torch, gs, sidx, wg, R, "Zipf")
     for what, s in (("every row out of range", torch.full_like(sidx, 2**30)),
+                    ("every row negative", torch.full_like(sidx, -3)),
                     ("no touches", sidx[:0])):
-        out = gs.sorted_grad_sums(s, wg[: s.shape[0]], R, "default")
-        check(out.shape == (R, 2 * W) and not bool(out.any()), f"K3: {what} gives exact zeros")
-    k_ms = time_ms(torch, lambda: gs.sorted_grad_sums(sidx, wg, R, "default"), reps=10)
-    p_ms = time_ms(torch, lambda: gs.sorted_grad_sums_plain(sidx, wg, R, "default"), reps=5)
-    log(f"  Zipf touches: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return worst
+        z = gs.sorted_grad_sums(s, wg[: s.shape[0]], 5000, "default")
+        check(z.shape == (5000, 80) and not bool(z.any()), f"K3: {what} gives exact zeros")
+    if dev.type == "cuda":
+        # The kernel stages gradient rows with 16-byte copies: a gradient
+        # view that starts 4 bytes into its allocation is copied by the
+        # wrapper (the same result as an aligned copy, bitwise), and a width
+        # that is not a multiple of 4 is refused.
+        view = torch.empty(wg_np.size + 1, device=dev)[1:].view(wg_np.shape)
+        view.copy_(wg)
+        got = gs.sorted_grad_sums(sidx, view, 5000, "default")
+        check(view.data_ptr() % 16 != 0
+              and torch.equal(got, gs.sorted_grad_sums(sidx, view.clone(), 5000, "default")),
+              "K3 on a gradient view off a 16-byte boundary equals K3 on an aligned copy")
+        try:
+            gs.sorted_grad_sums(sidx[:5].clamp(0, 99), torch.zeros((5, 37), device=dev), 100)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused, "K3 refuses a gradient width that is not a multiple of 4 on the card")
+    return {"worst": worst, "cases": out}
 
 
 def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_clusters: int = 64):
@@ -1483,24 +1565,8 @@ def hybrid_path(torch, seed: int) -> dict:
 
     # K3 on the real item touches of epoch 2, step 2.
     sidx, wg, n_rows, _ = k3_args
-    sidx, wg = sidx.contiguous(), wg.contiguous()
-    M, W = wg.shape
-    err = check_grad_sums(torch, gs, sidx, wg, n_rows, "on the step's item touches")
-    k_ms = time_ms(torch, lambda: gs.sorted_grad_sums(sidx, wg, n_rows, "default"), reps=20)
-    p_ms = time_ms(torch, lambda: gs.sorted_grad_sums_plain(sidx, wg, n_rows, "default"), reps=10)
-    both = torch.cat([wg, wg * wg], dim=1)
-    rows = sidx.long()
-
-    def library():
-        torch.zeros((n_rows, 2 * W), dtype=torch.float32, device=wg.device).index_add_(0, rows, both)
-
-    lib_ms = time_ms(torch, library, reps=20)
-    bound = (4 * M * (W + 1) + 8 * W * n_rows) / HBM_BYTES_PER_S * 1e3
-    runs_ = torch.unique_consecutive(sidx, return_counts=True)[1]
-    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bound,
-           "max_abs_err": err, "M": M, "W": W, "n_rows": n_rows,
-           "distinct": int(runs_.numel()), "hottest": int(runs_.max())}
-    log("  K3 on the real step touches (ms, default precision): " + json.dumps(row))
+    row = check_grad_sums(torch, gs, sidx.contiguous(), wg.contiguous(), n_rows,
+                          "on the step's item touches")
     del m, data
     torch.cuda.empty_cache()
     return {"launches": launches, "row": row}
@@ -1653,7 +1719,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s")
-    for name in ("rank_counts", "grad_sums", "warp_fit"):  # adagrad_update's: phase 4
+    for name in ("rank_counts", "warp_fit"):  # adagrad_update's: phase 4, grad_sums': 4b
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}:", line.strip())
@@ -1670,7 +1736,7 @@ def main() -> int:
         check(rec["launches"] > 0, f"{rec['name']} launched on the serving path")
 
     k1_cases = update_kernel_checks(torch, args.seed)
-    k3_zipf_err = grad_sums_checks(torch, args.seed)
+    k3_cases = grad_sums_checks(torch, args.seed)
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
@@ -1708,9 +1774,13 @@ def main() -> int:
             "source": "lightfm_tpu_torch/csrc/grad_sums.cu",
             "replaces": "lightfm_tpu/ops/pallas_update.py:365",
             "launches": hybrid["launches"]["sorted_grad_sums"],
-            "max_abs_err": max(k3_zipf_err, k3["max_abs_err"]),
+            "max_abs_err": max(k3_cases["worst"], k3["max_abs_err"]),
             "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
             "bound_by": "bytes", "library_ms": k3["library_ms"],
+            "device_ms": k3["device_ms"], "distinct": k3["distinct"],
+            "hottest": k3["hottest"], "ms_zipf": k3_cases["cases"]["Zipf items"]["ms"],
+            "hot_row_sweep": {k.split("=")[1]: {"ms": v["ms"], "device_ms": v["device_ms"]}
+                              for k, v in k3_cases["cases"].items() if k.startswith("hot row")},
         },
         {
             "name": "warp_fit_fused", "route": "cuda",

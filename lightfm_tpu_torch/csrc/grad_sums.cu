@@ -7,107 +7,84 @@
 // over the touches of each row r in [0, n_rows), with duplicates summed, rows
 // outside [0, n_rows) ignored and untouched rows exactly 0.  At bf16 precision
 // every wg and wg*wg (computed in fp32) is rounded to bf16, nearest even,
-// before the fp32 sum: the TPU's DEFAULT-precision one-hot matmul.  It is the
-// accumulation phase of the adagrad update kernel (csrc/adagrad_update.cu)
-// without the apply step, and feeds the hybrid training path's aggregated
-// feature update.
-//
-// Design.  The output is zeroed with a memset on the caller's stream, then a
-// segmented reduction over the sorted runs writes the touched rows: each warp
-// takes kChunk touch positions and owns every run of equal row ids that STARTS
-// in its chunk (i == 0 or sidx[i] != sidx[i-1]), walking that run to its end
-// even past the chunk.  Its lanes stride the W columns (up to 32 * kMaxCols per
-// pass, so W = 72 is one pass of 3 columns a lane) and sum in fp32 in touch
-// order.  No two warps write one row and no atomics are used, so two launches
-// are bitwise equal.
+// before the fp32 sum: the TPU's DEFAULT-precision one-hot matmul.  It feeds
+// the hybrid training path's aggregated feature update.
 //
 // Bound on the card: bytes.  The call reads 4*M*(W+1) bytes of touches and
 // writes the whole [n_rows, 2W] output, 8*W*n_rows bytes: at the hybrid step's
 // M = 131072, W = 72, n_rows = 100000 about 0.029 ms at 3.35 TB/s, most of it
-// the output.  As in the update kernel, a hot row's run is walked by one warp,
-// so the longest run, not the bytes, sets the time on skewed touches.
+// the output.  This design writes the touched rows twice (the memset's zeros,
+// then the sums): about 0.041 ms of bytes at that shape.
+//
+// Design: the output is zeroed by a memset on the caller's stream (untouched
+// rows are most of the table, and a memset writes them once at the memory's
+// rate), then the two-pass segmented reduction of csrc/segmented.cuh
+// (pass A sums each 64-touch segment's runs from a cp.async slab, pass B adds
+// the partial rows of the runs that cross segment edges in a fixed order, no
+// atomics), whose finished runs this file stores: a run's output store waits
+// on no load.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "segmented.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kChunk = 16;   // touch positions a warp scans for run starts
-constexpr int kMaxCols = 4;  // columns a lane holds per pass (128 per warp)
+using namespace segmented;
 
-template <bool kBf16>
-__device__ __forceinline__ float rounded(float x) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
+// Stores the sums of NR rows (a row < 0 is skipped) at columns [c0, c0 + cw)
+// of their (sum wg | sum wg^2) output rows; this lane takes columns
+// c0 + lane + 32 * q.
+struct StoreSums {
+  float* out;
+  int W;
 
-template <int CPL, bool kBf16>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sorted_grad_sums_kernel(float* __restrict__ out, const int* __restrict__ sidx,
-                        const float* __restrict__ swg, long long M, int R,
-                        int W) {
-  const int lane = threadIdx.x & 31;
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const long long begin = warp * kChunk;
-  if (begin >= M) return;
-  const long long end = begin + kChunk < M ? begin + kChunk : M;
-
-  for (long long i = begin; i < end; ++i) {
-    const int r = sidx[i];
-    if (r < 0 || r >= R) continue;            // sentinel touch
-    if (i > 0 && sidx[i - 1] == r) continue;  // run owned by an earlier warp
-    long long stop = i + 1;
-    while (stop < M && sidx[stop] == r) ++stop;
-
-    float* orow = out + (size_t)r * 2 * W;
-    for (int c0 = 0; c0 < W; c0 += 32 * CPL) {
-      float s[CPL], s2[CPL];
+  template <int NR, int CPL>
+  __device__ __forceinline__ void operator()(const int (&rows)[NR], int c0, int cw,
+                                             int lane, const float (&s)[NR][CPL],
+                                             const float (&s2)[NR][CPL]) const {
 #pragma unroll
-      for (int k = 0; k < CPL; ++k) s[k] = s2[k] = 0.0f;
-      for (long long j = i; j < stop; ++j) {
-        const float* g_row = swg + (size_t)j * W;
+    for (int b = 0; b < NR; ++b) {
 #pragma unroll
-        for (int k = 0; k < CPL; ++k) {
-          const int c = c0 + lane + 32 * k;
-          if (c < W) {
-            const float g = g_row[c];
-            // __fmul_rn keeps g*g a rounded product (no FMA contraction).
-            s[k] += rounded<kBf16>(g);
-            s2[k] += rounded<kBf16>(__fmul_rn(g, g));
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < CPL; ++k) {
-        const int c = c0 + lane + 32 * k;
-        if (c < W) {
-          orow[c] = s[k];
-          orow[W + c] = s2[k];
+      for (int q = 0; q < CPL; ++q) {
+        const int c = lane + 32 * q;
+        if (rows[b] >= 0 && c < cw) {
+          out[(size_t)rows[b] * 2 * W + c0 + c] = s[b][q];
+          out[(size_t)rows[b] * 2 * W + W + c0 + c] = s2[b][q];
         }
       }
     }
   }
+};
+
+template <int CPL, bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+grad_sums_segment_pass(float* __restrict__ out, const int* __restrict__ sidx,
+                       const float* __restrict__ swg, float* __restrict__ part,
+                       long long M, int R, int W) {
+  segment_pass<CPL, kBf16>(StoreSums{out, W}, sidx, swg, part, M, R, W);
 }
 
 template <int CPL>
-cudaError_t launch(float* out, const int* sidx, const float* swg, long long M,
-                   int R, int W, bool bf16, cudaStream_t stream) {
-  const long long warps = (M + kChunk - 1) / kChunk;
-  const unsigned blocks =
-      (unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const int threads = kWarpsPerBlock * 32;
+__global__ void __launch_bounds__(kThreads)
+grad_sums_combine_pass(float* __restrict__ out, const int* __restrict__ sidx,
+                       const float* __restrict__ part, long long M, int R, int W) {
+  combine_pass<CPL>(StoreSums{out, W}, sidx, part, M, R, W);
+}
+
+template <int CPL>
+cudaError_t launch(float* out, const int* sidx, const float* swg, float* part,
+                   long long M, int R, int W, bool bf16, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)segments(M);
   if (bf16) {
-    sorted_grad_sums_kernel<CPL, true><<<blocks, threads, 0, stream>>>(
-        out, sidx, swg, M, R, W);
+    grad_sums_segment_pass<CPL, true><<<blocks, kThreads, 0, stream>>>(
+        out, sidx, swg, part, M, R, W);
   } else {
-    sorted_grad_sums_kernel<CPL, false><<<blocks, threads, 0, stream>>>(
-        out, sidx, swg, M, R, W);
+    grad_sums_segment_pass<CPL, false><<<blocks, kThreads, 0, stream>>>(
+        out, sidx, swg, part, M, R, W);
   }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || combine_blocks(M) == 0) return err;
+  grad_sums_combine_pass<CPL><<<(unsigned)combine_blocks(M), kThreads, 0, stream>>>(
+      out, sidx, part, M, R, W);
   return cudaGetLastError();
 }
 
@@ -120,20 +97,26 @@ const char* grad_sums_error_string(int code) {
 }
 
 // out: f32 [R, 2W] (every element written: zeros, then the touched rows);
-// sidx: i32 [M] non-decreasing; swg: f32 [M, W].  bf16 != 0 rounds wg and
-// wg*wg to bf16 before summing.  Returns a cudaError_t code.
+// sidx: i32 [M] non-decreasing; swg: f32 [M, W], 16-byte aligned, W % 4 == 0;
+// part: f32 scratch [part_segments, 2, 2W], written and read only by this
+// call, where part_segments must be ceil(M / kSeg) (kSeg = 64; 0 for M = 0).
+// bf16 != 0 rounds wg and wg*wg to bf16 before summing.  Zeroes out, then
+// launches ceil(M / kSeg) pass-A blocks and ceil((segments - 1) / kWarps)
+// pass-B blocks, all on the caller's stream; returns a cudaError_t code.
 int sorted_grad_sums_launch(float* out, const int* sidx, const float* swg,
-                            long long M, int R, int W, int bf16, void* stream) {
+                            float* part, long long M, int R, int W, int bf16,
+                            long long part_segments, void* stream) {
   if (R <= 0 || W <= 0) return 0;
+  if (M < 0 || bad_launch(swg, M, W, part_segments)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaMemsetAsync(out, 0, (size_t)R * 2 * W * sizeof(float), s);
-  if (err != cudaSuccess || M <= 0) return (int)err;
-  const int cols = (W + 31) / 32;
-  if (cols <= 1) return (int)launch<1>(out, sidx, swg, M, R, W, bf16, s);
-  if (cols <= 2) return (int)launch<2>(out, sidx, swg, M, R, W, bf16, s);
-  if (cols <= 3) return (int)launch<3>(out, sidx, swg, M, R, W, bf16, s);
-  return (int)launch<kMaxCols>(out, sidx, swg, M, R, W, bf16, s);
+  cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R * 2 * W * sizeof(float), s);
+  if (err != cudaSuccess || M == 0) return (int)err;
+  switch (cols_per_lane(W)) {
+    case 1: return (int)launch<1>(out, sidx, swg, part, M, R, W, bf16, s);
+    case 2: return (int)launch<2>(out, sidx, swg, part, M, R, W, bf16, s);
+    case 3: return (int)launch<3>(out, sidx, swg, part, M, R, W, bf16, s);
+    default: return (int)launch<kMaxCols>(out, sidx, swg, part, M, R, W, bf16, s);
+  }
 }
 
 }  // extern "C"

@@ -3,8 +3,9 @@
 Every ``lightfm_tpu_torch/csrc/*.cu`` compiles, with one ``nvcc`` process
 per source started together, into its own shared library with a plain C
 interface under ``lightfm_tpu_torch/_build/`` (listed in ``.gitignore``).
-The library name carries a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing here runs at
+The library name carries a hash of the source, of every ``csrc/*.cuh``
+header and of the flags, so an edited source or header rebuilds and an
+unchanged one is reused.  Nothing here runs at
 import time: the CPU-only test host has no ``nvcc``.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately no
@@ -50,7 +51,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``lightfm_tpu/ops/pallas_update.py:365``
 (``sorted_grad_sums_pallas``, K3).  The kernel lives in ``csrc/grad_sums.cu``
-(see its note for the design and bound); it is built at first use by
-:mod:`lightfm_tpu_torch.ops._build` and called through ctypes on PyTorch's
-current stream.
+(see its note for the design and bound) on the two-pass segmented reduction
+it shares with K1 (``csrc/segmented.cuh``), so its scratch and alignment
+helpers are K1's (:mod:`lightfm_tpu_torch.ops.adagrad_update`); it is built
+at first use by :mod:`lightfm_tpu_torch.ops._build` and called through
+ctypes on PyTorch's current stream.
 
 ``sorted_grad_sums(sidx, swg, n_rows)`` returns a new f32 ``[n_rows, 2W]``
 tensor: ``[:, :W] = sum(wg)`` and ``[:, W:] = sum(wg * wg)`` over each row's
@@ -27,6 +29,7 @@ import ctypes
 import torch
 
 from lightfm_tpu_torch.ops import _build
+from lightfm_tpu_torch.ops.adagrad_update import SEGMENT, aligned, scratch_shape
 from lightfm_tpu_torch.ops.representation import round_to_bf16
 
 PRECISIONS = ("highest", "default")
@@ -43,7 +46,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("grad_sums")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sorted_grad_sums_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
+        ll = ctypes.c_longlong
+        lib.sorted_grad_sums_launch.argtypes = [p, p, p, p, ll, i, i, i, ll, p]
         lib.sorted_grad_sums_launch.restype = i
         lib.grad_sums_error_string.argtypes = [i]
         lib.grad_sums_error_string.restype = ctypes.c_char_p
@@ -91,18 +95,27 @@ def sorted_grad_sums(sidx: torch.Tensor, swg: torch.Tensor, n_rows: int,
     """K3: ``[n_rows, 2W]`` per-row ``[sum(wg) | sum(wg^2)]`` over touches
     whose rows ``sidx`` (int32 [M]) are NON-DECREASING, with gradients
     ``swg`` f32 [M, W] in the same order.  The kernel relies on the order (a
-    row's touches must form one run); it is not checked on the card."""
+    row's touches must form one run); it is not checked on the card.  On
+    the card it takes gradients whose width W is a multiple of 4 (every
+    table the model makes: its width is rounded to 8).  One call (a memset
+    and two grids: the segment pass and the ordered combine) counts as one
+    launch."""
     _check_args(sidx, swg, n_rows, precision)
     if sidx.device.type == "cpu":
         return sorted_grad_sums_plain(sidx, swg, n_rows, precision)
-    R, W = int(n_rows), swg.shape[1]
+    R, (M, W) = int(n_rows), swg.shape
     out = torch.empty((R, 2 * W), dtype=torch.float32, device=swg.device)
     if R == 0 or W == 0:
         return out
+    if W % 4:
+        raise ValueError(f"the K3 kernel takes gradients whose width is a multiple of 4, got {W}")
     lib = _lib()
+    swg = aligned(swg)
+    part = torch.empty(scratch_shape(M, W) if M else (0,), dtype=torch.float32,
+                       device=swg.device)
     code = lib.sorted_grad_sums_launch(
-        out.data_ptr(), sidx.data_ptr(), swg.data_ptr(), sidx.shape[0], R, W,
-        int(precision == "default"),
+        out.data_ptr(), sidx.data_ptr(), swg.data_ptr(), part.data_ptr(), M, R, W,
+        int(precision == "default"), part.shape[0],
         ctypes.c_void_p(torch.cuda.current_stream(swg.device).cuda_stream),
     )
     if code:

@@ -20,9 +20,10 @@ import jax.numpy as jnp
 
 from lightfm_tpu.ops.pallas_update import sorted_grad_sums_pallas
 
+from lightfm_tpu_torch.ops import adagrad_update as au
 from lightfm_tpu_torch.ops import grad_sums as gs
 
-from test_torch_update import _bf16_np
+from test_torch_update import _WALK_CASES, _bf16_np, _segmented_walk, _terms, _walk_case
 
 EPS = 2.0 ** -23
 
@@ -129,3 +130,46 @@ def test_wrapper_checks_arguments_and_counts_no_cpu_launch():
     gs.sorted_grad_sums(sidx, swg, 100)
     assert gs.launches == {"sorted_grad_sums": 0}  # plain versions are not launches
 
+
+# --- the two-pass kernel's plan and bookkeeping -----------------------------
+# K3 is K1's segmented reduction (csrc/segmented.cuh) whose finished runs
+# store their sums into the zeroed output instead of applying adagrad; the
+# walk of tests/test_torch_update.py runs here with that finish step.
+
+
+def test_wrapper_uses_k1_scratch_and_alignment():
+    assert gs.scratch_shape is au.scratch_shape and gs.aligned is au.aligned
+    assert gs.SEGMENT == au.SEGMENT == 64
+
+
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("name", list(_WALK_CASES))
+def test_two_pass_walk_matches_plain_and_jax(name, precision):
+    _, _, idx, wg, want_paths = _walk_case(name)
+    R, W = 500, wg.shape[1]
+    got = np.zeros((R, 2 * W), np.float32)
+
+    def store(r, s, s2):
+        assert not got[r].any()  # each row is finished once
+        got[r] = np.concatenate([s, s2])
+
+    g, g2 = _terms(wg, precision)
+    paths = _segmented_walk(idx, g, g2, R, store)
+    for path, n in want_paths.items():
+        assert paths[path] == n, paths  # the case takes the path it is for
+    assert np.isfinite(got).all()  # no unwritten slot read
+    _, tol = _numpy_sums(idx, g, g2, R)
+    plain = _port(idx, wg, R, precision)
+    assert (np.abs(got - plain) <= tol).all(), np.abs(got - plain).max()
+    keep = (idx >= 0) & (idx < R)
+    untouched = np.setdiff1d(np.arange(R), idx[keep])
+    assert len(untouched) and not got[untouched].any()
+    if precision == "highest":
+        # The TPU kernel's contract ignores rows >= n_rows; negative rows are
+        # the port's own sentinels, so they are left out of its input.
+        nonneg = idx >= 0
+        pallas = np.asarray(sorted_grad_sums_pallas(
+            jnp.asarray(idx[nonneg]), jnp.asarray(wg[nonneg]), n_rows=R, interpret=True,
+            precision=jax.lax.Precision.HIGHEST,
+        ))
+        assert (np.abs(got - pallas) <= tol).all(), np.abs(got - pallas).max()

@@ -235,34 +235,22 @@ def test_aligned_copies_only_a_misaligned_view():
 _WARPS = 8
 
 
-def _two_pass(table, acc, idx, wg, precision):
-    """A numpy walk of the kernel's bookkeeping, in float32 and in the
-    kernel's summation orders: pass A sums every run of a segment in touch
-    order and applies the runs that begin and end inside it; the run that
-    enters the segment and the one that leaves it become partial rows (slots
-    0 and 1 of a NaN-filled scratch, so a slot read before it is written
-    shows).  Pass B: the segment where a leaving run starts adds the run's
-    partials, in order for at most 32 of them, else in the block's tree
-    (warp w sums partials w, w + 8, ...; warp sums added in warp order).
-    Returns the updated copies and how many runs took each path."""
-    table, acc = table.copy(), acc.copy()
-    R, W = table.shape
-    M = idx.shape[0]
-    g = wg.astype(np.float32)
-    g2 = g * g
-    if precision == "default":
-        g, g2 = _bf16_np(g), _bf16_np(g2)
+def _segmented_walk(idx, g, g2, R, finish):
+    """A numpy walk of the segmented kernels' bookkeeping (K1 and K3 share
+    it, ``csrc/segmented.cuh``), in float32 and in the kernels' summation
+    orders, over the float32 terms ``g`` and ``g2`` [M, W]: pass A sums
+    every run of a segment in touch order and finishes the runs that begin
+    and end inside it; the run that enters the segment and the one that
+    leaves it become partial rows (slots 0 and 1 of a NaN-filled scratch, so
+    a slot read before it is written shows).  Pass B: the segment where a
+    leaving run starts adds the run's partials, in order for at most 32 of
+    them, else in the block's tree (warp w sums partials w, w + 8, ...; warp
+    sums added in warp order), and finishes it.  ``finish(r, s, s2)`` is what
+    a finished run does.  Returns how many runs took each path."""
+    M, W = g.shape
     n_seg = -(-M // L)
     part = np.full((n_seg, 2, 2 * W), np.nan, np.float32)
-    lr = np.float32(LR)
     paths = {"inside": 0, "warp": 0, "block": 0}
-
-    def apply(r, s, s2):
-        a = acc[r].copy()
-        step = (lr * (np.float32(1) / np.sqrt(a))) * s
-        table[r] = table[r] - step
-        acc[r] = a + s2
-
     for seg in range(n_seg):
         j0 = seg * L
         ids = idx[j0 : j0 + L]
@@ -283,7 +271,7 @@ def _two_pass(table, acc, idx, wg, precision):
             if head or tail:
                 part[seg, 0 if head else 1] = np.concatenate([s, s2])
             else:
-                apply(r, s, s2)
+                finish(r, s, s2)
                 paths["inside"] += 1
     for seg in range(n_seg - 1):
         end = (seg + 1) * L
@@ -300,18 +288,44 @@ def _two_pass(table, acc, idx, wg, precision):
                 tot = tot + row
             paths["warp"] += 1
         else:
-            warps = _WARPS
             sums = []
-            for w in range(warps):
+            for w in range(_WARPS):
                 acc_w = np.zeros(2 * W, np.float32)
-                for row in rows[w::warps]:
+                for row in rows[w::_WARPS]:
                     acc_w = acc_w + row
                 sums.append(acc_w)
             tot = sums[0]
             for acc_w in sums[1:]:
                 tot = tot + acc_w
             paths["block"] += 1
-        apply(r, tot[:W], tot[W:])
+        finish(r, tot[:W], tot[W:])
+    return paths
+
+
+def _terms(wg, precision):
+    """The float32 terms both kernels sum: wg and wg * wg, each rounded to
+    bf16 at ``"default"``."""
+    g = wg.astype(np.float32)
+    g2 = g * g
+    if precision == "default":
+        g, g2 = _bf16_np(g), _bf16_np(g2)
+    return g, g2
+
+
+def _two_pass(table, acc, idx, wg, precision):
+    """K1's walk: :func:`_segmented_walk` whose finished runs take the
+    adagrad step with the pre-call acc.  Returns the updated copies and how
+    many runs took each path."""
+    table, acc = table.copy(), acc.copy()
+    lr = np.float32(LR)
+
+    def apply(r, s, s2):
+        a = acc[r].copy()
+        step = (lr * (np.float32(1) / np.sqrt(a))) * s
+        table[r] = table[r] - step
+        acc[r] = a + s2
+
+    paths = _segmented_walk(idx, *_terms(wg, precision), table.shape[0], apply)
     return (table, acc), paths
 
 
