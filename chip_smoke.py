@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -247,15 +248,46 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
         f"matmul {lib_ms:.3f} ms, bound {rc_bound:.3f} ms "
         f"(fp32 peak {peak / 1e12:.1f} TFLOP/s)")
 
-    ps_k_ms = time_ms(torch, lambda: rc.pair_scores(u, items, idx))
+    # (i) pair_scores at the shapes of its four launches in a predict_rank:
+    # the test slots (C = T) and the train exclusion chunk (C = 32) of the
+    # light tier, and the heavy tier's exclusion chunk (U = 256, C = 416);
+    # integer-valued so exact, then times on the gaussian inputs of (b):
+    # CUDA events, torch.profiler's device time, the wrapper's host enqueue,
+    # and the two-call yardstick (a gather of item rows, then a row dot;
+    # not bitwise, a time only).
+    int_items = randint(-2, 3, (I, Wa)).float()
+    ps_shapes = {}
+    for what, n_u, c in (("serving", U, T), ("exclusion", U, 32), ("heavy exclusion", 256, 416)):
+        iu = randint(-2, 3, (n_u, Wa)).float()
+        ix = randint(0, I, (n_u, c)).int()
+        check(torch.equal(rc.pair_scores(iu, int_items, ix), rc.pair_scores_plain(iu, int_items, ix)),
+              f"pair_scores {what} (U={n_u}, C={c}, {rc.pair_plan(n_u, c, Wa)}): integer-valued "
+              "equals plain exactly")
+        gu = u[:n_u].contiguous()
+        gx = idx if c == T else randint(0, I, (n_u, c)).int()
+
+        def run(gu=gu, gx=gx):
+            return rc.pair_scores(gu, items, gx)
+
+        def two_calls(gu=gu, gx=gx):
+            return (gu[:, None, :] * items[gx.long()]).sum(-1)
+
+        rows = int(torch.unique(gx).numel())
+        nbytes = 4 * (n_u * Wa + rows * Wa + 2 * n_u * c)
+        ops = 2 * n_u * c * Wa
+        ps_shapes[what] = {
+            "U": n_u, "C": c, "ms": time_ms(torch, run, reps=50),
+            "device_ms": sum(device_ms(torch, run, reps=20).values()),
+            "host_ms": host_ms(torch, run, reps=50),
+            "yardstick_ms": time_ms(torch, two_calls, reps=5),
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3,
+            "bound_by": "operations" if ops / peak > nbytes / HBM_BYTES_PER_S else "bytes",
+        }
+        log(f"  pair_scores {what}: " + json.dumps(ps_shapes[what]))
+    serve = ps_shapes["serving"]
     ps_p_ms = time_ms(torch, lambda: rc.pair_scores_plain(u, items, idx))
-    rows = int(torch.unique(idx).numel())
-    ps_bytes = 4 * (U * Wa + rows * Wa + U * T + U * T)
-    ps_ops = 2 * U * T * Wa
-    ps_bound = max(ps_bytes / HBM_BYTES_PER_S, ps_ops / peak) * 1e3
-    log(f"  pair_scores kernel {ps_k_ms:.4f} ms, plain {ps_p_ms:.4f} ms, "
-        f"bound {ps_bound:.4f} ms")
-    del zu, zi, u, items
+    log(f"  pair_scores plain {ps_p_ms:.4f} ms at the serving shape")
+    del zu, zi, u, items, int_items
     torch.cuda.empty_cache()
     wide = wide_kernel_checks(torch, g, I, peak)
 
@@ -276,9 +308,11 @@ def kernel_checks(torch, seed: int, i_pad: int) -> list[dict]:
             "source": "lightfm_tpu_torch/csrc/rank_counts.cu",
             "replaces": "lightfm_tpu/ops/ranking.py:293",
             "launches": 0, "max_abs_err": ps_err,
-            "ms": ps_k_ms, "plain_ms": ps_p_ms, "bound_ms": ps_bound,
-            "bound_by": "operations" if ps_ops / peak > ps_bytes / HBM_BYTES_PER_S else "bytes",
-            "library_ms": None,
+            "ms": serve["ms"], "plain_ms": ps_p_ms, "bound_ms": serve["bound_ms"],
+            "bound_by": serve["bound_by"], "library_ms": None,
+            "device_ms": serve["device_ms"], "host_ms": serve["host_ms"],
+            "yardstick_ms": serve["yardstick_ms"],
+            "shapes": {k: v for k, v in ps_shapes.items() if k != "serving"},
         },
     ]
 
@@ -1617,11 +1651,58 @@ def fit_quality(ut, it, train):
     return float(np.mean(aucs)), float(np.mean(p5))
 
 
-def warp_fit_path(torch, seed: int) -> dict:
-    """Phase 7: the whole-fit WARP kernel (K5) at the quickstart's size:
-    against its plain version after a few steps, then a whole 30-epoch fit
-    in one launch, held to the plain version's quality."""
-    from lightfm_tpu_torch.ops import warp_fit as wf
+CHAIN_TRIPS = 7  # L2 trips on a K5 step's critical path (csrc/warp_fit.cu's note)
+
+
+def k5_probes(torch, wf):
+    """K5's two chain-floor probes (``csrc/warp_fit.cu``), as functions of
+    their size returning ms: one ``grid.sync()`` of an empty cooperative
+    grid of ``blocks`` blocks (2,001 barriers against 1), and one L2 (or
+    device-memory) trip of one thread chasing a ring of ``n_el`` indices
+    for 200,000 hops."""
+    lib = wf._lib()
+    dev = torch.device("cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def probe(code):
+        if code:
+            raise RuntimeError(f"probe launch failed: {lib.warp_fit_error_string(code).decode()}")
+
+    def barrier_ms(blocks):
+        def syncs(n):
+            return lambda: probe(lib.warp_fit_sync_probe(blocks, n, stream))
+        return (time_ms(torch, syncs(2001), reps=3) - time_ms(torch, syncs(1), reps=3)) / 2000
+
+    def trip_ms(n_el, hops=200_000):
+        perm = np.random.RandomState(1).permutation(n_el).astype(np.int32)
+        ring = np.empty(n_el, np.int32)
+        ring[perm] = np.roll(perm, -1)
+        ring_t = torch.from_numpy(ring).to(dev)
+        out = torch.zeros(1, dtype=torch.int32, device=dev)
+        return time_ms(torch, lambda: probe(lib.warp_fit_chase_probe(
+            ring_t.data_ptr(), hops, out.data_ptr(), stream)), reps=3) / hops
+
+    return barrier_ms, trip_ms
+
+
+def chain_floor(torch, wf, S: int) -> dict:
+    """K5's chain floor: S steps x (2 grid-wide barriers on the fit's
+    default grid + CHAIN_TRIPS L2 trips, a ring of 4 MB, which the L2
+    holds after the warm-up)."""
+    barrier, trip = k5_probes(torch, wf)
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count  # the default grid
+    barrier_ms, trip_ms = barrier(blocks), trip(1 << 20)
+    floor = S * (2 * barrier_ms + CHAIN_TRIPS * trip_ms)
+    log(f"  K5 chain floor: {S} steps x (2 barriers of {barrier_ms * 1e3:.3f} us on {blocks} "
+        f"blocks + {CHAIN_TRIPS} L2 trips of {trip_ms * 1e6:.1f} ns) = {floor:.3f} ms")
+    return {"grid_blocks": blocks, "barrier_us": barrier_ms * 1e3, "l2_trip_ns": trip_ms * 1e6,
+            "chain_floor_ms": floor}
+
+
+def fit_inputs(torch, seed: int) -> dict:
+    """Phase 7's inputs, made from ``seed``: the planted train set, its
+    packed examples, FIT_EPOCHS shuffled epochs of batches and their
+    negatives, the positives rows and a fresh state (the tables)."""
     from lightfm_tpu_torch.sparse import pad_csr_sorted
     from lightfm_tpu_torch.state import init_state
     from lightfm_tpu_torch.train import choose_batch_size
@@ -1650,6 +1731,24 @@ def warp_fit_path(torch, seed: int) -> dict:
     batches_t = torch.from_numpy(np.ascontiguousarray(batches)).to(dev)
     negs_t = torch.from_numpy(negs).to(dev)
     kw = dict(n_items=FIT_ITEMS, max_sampled=FIT_K, learning_rate=LR)
+    return dict(train=train, packed=packed, n=n, B=B, rng=rng, batches=batches, S=S,
+                positives=positives, tables=tables, batches_t=batches_t, negs_t=negs_t, kw=kw)
+
+
+def warp_fit_path(torch, seed: int) -> dict:
+    """Phase 7: the whole-fit WARP kernel (K5) at the quickstart's size:
+    against its plain version after a few steps (and on a skewed step, at
+    B = 4,096 and on other grid sizes), then a whole 30-epoch fit in one
+    launch, held to the plain version's quality, with its chain floor."""
+    from lightfm_tpu_torch.ops import warp_fit as wf
+    from lightfm_tpu_torch.state import init_state
+
+    dev = torch.device(DEVICE)
+    inp = fit_inputs(torch, seed)
+    train, packed, n, B, rng, batches, S = (
+        inp[k] for k in ("train", "packed", "n", "B", "rng", "batches", "S"))
+    positives, tables, batches_t, negs_t, kw = (
+        inp[k] for k in ("positives", "tables", "batches_t", "negs_t", "kw"))
     W = tables[0].shape[1]
     log(f"phase 7: whole-fit WARP kernel (K5), {FIT_USERS} users x {FIT_ITEMS} items, "
         f"{n} positives, D={FIT_D} (W={W}), B={B}, K={FIT_K}, {FIT_EPOCHS} epochs = {S} steps, "
@@ -1657,14 +1756,59 @@ def warp_fit_path(torch, seed: int) -> dict:
 
     names = ("user_table", "user_acc", "item_table", "item_acc")
     few = 4
-    got = wf.warp_fit_fused(*tables, batches_t[:few], negs_t[:few], positives, **kw)
-    want = wf.warp_fit_fused_plain(*tables, batches_t[:few], negs_t[:few], positives, **kw)
     err = 0.0
-    for name, g, w in zip(names, got, want):
-        d = (g - w).abs()
-        err = max(err, float(d.max()))
-        check(bool((d <= 1e-5 + 1e-5 * w.abs()).all()),
-              f"K5 after {few} steps: {name} equals plain to 1e-5 + 1e-5|x| (max |d| {float(d.max()):.3g})")
+
+    def held_to_plain(what, bt, ng, tabs=tables):
+        nonlocal err
+        got = wf.warp_fit_fused(*tabs, bt, ng, positives, **kw)
+        want = wf.warp_fit_fused_plain(*tabs, bt, ng, positives, **kw)
+        for name, g, w in zip(names, got, want):
+            d = (g - w).abs()
+            err = max(err, float(d.max()))
+            check(bool((d <= 1e-5 + 1e-5 * w.abs()).all()),
+                  f"K5 {what}: {name} equals plain to 1e-5 + 1e-5|x| (max |d| {float(d.max()):.3g})")
+        return got
+
+    got = held_to_plain(f"after {few} steps", batches_t[:few], negs_t[:few])
+    # The grid's size changes no sum's order: one block, three blocks (B is
+    # not a multiple of 3) and the default grid give bitwise equal fits.
+    for n_blocks in (1, 3):
+        again = wf.warp_fit_fused(*tables, batches_t[:few], negs_t[:few], positives, **kw,
+                                  blocks=n_blocks)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K5 after {few} steps on {n_blocks} block(s) is bitwise the default grid's")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        wf.warp_fit_fused(*tables, batches_t[:1], negs_t[:1], positives, **kw, blocks=4 * sms + 1)
+        refused = False
+    except RuntimeError as e:
+        refused = "cooperative" in str(e).lower() or "too large" in str(e).lower()
+        log(f"  a grid of {4 * sms + 1} blocks: {e}")
+    check(refused, "a cooperative grid larger than the card holds is refused and raises")
+
+    # A skewed step: one item is the positive of 3 in 4 examples of each of
+    # the first steps, so one block owns most of the step's touches.
+    hot = batches[:few].copy()
+    hot[:, 1, np.arange(B) % 4 != 0] = 7
+    held_to_plain(f"skewed, item 7 the positive of 75% of {few} steps' examples",
+                  torch.from_numpy(hot).to(dev), negs_t[:few])
+    # B = 4,096: a step's 12,288 keys outgrow a block's list in shared memory.
+    big = 4096
+    n_big = -(-n // big) * big
+    packed_big = np.zeros((8, n_big), np.int32)
+    packed_big[:, :n] = packed[:, :n]
+    bt_big = packed_big[:, rng.permutation(n_big)].reshape(8, n_big // big, big).transpose(1, 0, 2)
+    ng_big = rng.randint(0, FIT_ITEMS, (bt_big.shape[0], 1, FIT_K * big)).astype(np.int32)
+    check(3 * big > wf._lib().warp_fit_smem_key_capacity(), "B = 4,096 keeps its keys in device memory")
+    held_to_plain(f"at B = {big}, {bt_big.shape[0]} steps",
+                  torch.from_numpy(np.ascontiguousarray(bt_big)).to(dev), torch.from_numpy(ng_big).to(dev))
+    # Wider tables take the kernel's other column counts, 2 and 4 a lane.
+    for d in (40, 100):
+        wide = init_state(d, FIT_ITEMS, FIT_USERS, np.random.RandomState(seed + d), adagrad=True,
+                          device=dev)
+        held_to_plain(f"at D = {d} (W = {wide.user_table.shape[1]}), {few} steps",
+                      batches_t[:few], negs_t[:few],
+                      (wide.user_table, wide.user_acc, wide.item_table, wide.item_acc))
 
     (k_state, launches) = counted_all(wf.warp_fit_fused, *tables, batches_t, negs_t, positives, **kw)
     check(launches["warp_fit_fused"] == 1, f"the whole {S}-step fit is one K5 launch")
@@ -1696,10 +1840,12 @@ def warp_fit_path(torch, seed: int) -> dict:
     n_ops = S * B * (FIT_K + 1) * 2 * W
     peak = fp32_peak_flops(torch)
     bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / peak) * 1e3
+    floor = chain_floor(torch, wf, S)
     row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
            "bound_by": "operations" if n_ops / peak > n_bytes / HBM_BYTES_PER_S else "bytes",
            "max_abs_err": err, "launches": launches["warp_fit_fused"], "steps": S,
-           "ms_per_step": k_ms / S}
+           "ms_per_step": k_ms / S, **floor,
+           "bound_with_chain_ms": max(bound, floor["chain_floor_ms"])}
     log("  K5 whole fit (ms): " + json.dumps(row))
     return row
 
@@ -1789,6 +1935,8 @@ def main() -> int:
             "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
             "ms": k5["ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
             "bound_by": k5["bound_by"], "library_ms": None,
+            **{k: k5[k] for k in ("steps", "ms_per_step", "chain_floor_ms", "bound_with_chain_ms",
+                                  "grid_blocks", "barrier_us", "l2_trip_ns")},
         },
     ]
 

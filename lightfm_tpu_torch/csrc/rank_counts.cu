@@ -10,7 +10,7 @@
 //
 // Exactness.  Every score is one sequential chain of IEEE fp32 fused
 // multiply-adds over the Wa columns in index order, acc = fma(u[k], it[k],
-// acc) from acc = 0: row_dot's chain.  The ranking path removes each test
+// acc) from acc = 0 ("row_dot's chain").  The ranking path removes each test
 // item's self match with an exact "- 1" (lightfm_tpu/ops/ranking.py:396-399),
 // which is only right if the test score pair_scores hands to rank_counts is
 // bitwise the score rank_counts computes for that item.  So: no split of
@@ -60,6 +60,33 @@
 //   with warp shuffles and one lane atomicAdds each sum into counts zeroed
 //   by the wrapper.  Integer addition is associative, so two launches are
 //   bitwise equal.
+//
+// pair_scores keeps the same chain, acc = fma(u[k], it[k], acc) over k in
+// order from 0, one thread per (user, slot) pair.  Bound: the bytes, each
+// user row and each distinct gathered catalog row read once and the scores
+// written once (U = 50,000, C = 10, Wa = 73: 44 MB, 0.0142 ms at 3.35 TB/s).
+// That bound is out of reach of any order of the pairs that does not group
+// them by item: every gathered row crosses the L2 once per pair (10
+// sectors, 160 MB there).  A thread that walked its two rows straight from
+// global memory (the first version) had the 32 lanes of a warp read 32
+// rows 4*Wa bytes apart on every k.  Here a block owns 128 consecutive
+// pairs of the flat [U, C] output (so any C runs, and the users it touches
+// are consecutive, at most ceil(127 / C) + 1) and stages their gathered
+// item rows, then its users' rows, into shared memory, one warp per row
+// with its lanes on consecutive floats, eight rows' loads a warp in flight
+// before their stores.  Rows sit `stride` floats apart, stride a multiple
+// of 4 with stride / 4 odd, so a thread reads its two rows as float4 and
+// the 8 threads of each quarter warp hit 8 different 16-byte bank groups.
+// Tried on the card and dropped (PERF.md §6): staging by 4-byte cp.async
+// (Wa = W + 1 with W a multiple of 8 is odd, so 16-byte copies never line
+// up with a row; no faster); 2 or 4 rows a warp in flight (a quarter and a
+// tenth slower); 16 with the users in the same rounds (twice slower);
+// walking the catalog in L2-sized slices (twice slower).  A kernel that
+// only gathers and sums the same rows, a warp a row, is no faster than
+// this one (tools/torch_kernel_probe.py --gather): the L2's rate for 4-byte
+// loads of rows 4*Wa bytes apart sets the time.  Wide rows are staged in
+// chunks of at most 80 columns, the chain carried across them in a
+// register; NaN for an index outside [0, I).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,13 +95,10 @@ namespace {
 
 constexpr int kThreads = 128;  // 16 user groups x 8 item groups
 constexpr int kItems = 64;     // catalog rows per item tile
-
-__device__ __forceinline__ float row_dot(const float* __restrict__ a,
-                                         const float* __restrict__ b, int n) {
-  float acc = 0.0f;
-  for (int k = 0; k < n; ++k) acc = __fmaf_rn(a[k], b[k], acc);
-  return acc;
-}
+constexpr int kPairs = 128;    // pair_scores: (user, slot) pairs per block
+constexpr int kMaxChunk = 80;  // pair_scores: columns of a staged chunk
+constexpr int kStageCols = (kMaxChunk + 31) / 32;  // floats a lane stages a row
+constexpr int kStage = 8;      // rows whose loads a warp starts together
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
                                            int src_bytes) {
@@ -275,18 +299,94 @@ rank_counts_kernel(const float* __restrict__ uT, const float* __restrict__ itT,
   }
 }
 
-__global__ void pair_scores_kernel(const float* __restrict__ u_aug,
-                                   const float* __restrict__ items_aug,
-                                   const int* __restrict__ idx,
-                                   float* __restrict__ out, int U, int C, int I,
-                                   int Wa) {
-  const size_t x = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= (size_t)U * C) return;
-  const int u = (int)(x / C);
-  const int i = idx[x];
-  out[x] = (i >= 0 && i < I)
-               ? row_dot(u_aug + (size_t)u * Wa, items_aug + (size_t)i * Wa, Wa)
-               : NAN;
+// Stage rows 0 .. n - 1 of a block's operand (row r from row(r), a pointer
+// to its chunk's first float, or nullptr for nothing) into dst, rows `stride`
+// floats apart: warp w takes rows w * kStage .., lanes on consecutive floats,
+// the loads of kStage rows started before their stores.
+template <typename RowFn>
+__device__ __forceinline__ void stage_rows(float* dst, int stride, int n,
+                                           int cols, RowFn row) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r0 = warp * kStage; r0 < n; r0 += (kPairs / 32) * kStage) {
+    float v[kStage][kStageCols];
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      const float* src = r0 + j < n ? row(r0 + j) : nullptr;
+#pragma unroll
+      for (int q = 0; q < kStageCols; ++q) {
+        const int c = lane + 32 * q;
+        v[j][q] = (src != nullptr && c < cols) ? __ldg(src + c) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStage; ++j) {
+      if (r0 + j >= n) break;
+#pragma unroll
+      for (int q = 0; q < kStageCols; ++q) {
+        const int c = lane + 32 * q;
+        if (c < cols) dst[(r0 + j) * stride + c] = v[j][q];
+      }
+    }
+  }
+}
+
+// Block x owns the kPairs flat pairs [x * kPairs, x * kPairs + kPairs) of
+// the row-major [U, C] output, so the users it touches are consecutive.
+// Per chunk of kc <= kMaxChunk columns it stages the gathered item row of
+// each pair, then each user row once, `stride` floats apart (stride / 4
+// odd: 16-byte aligned rows, and 8 threads reading a float4 each at the same
+// k hit 8 different 16-byte bank groups); then each thread carries its
+// pair's FMA chain through the chunk, four columns a shared-memory load.
+__global__ void __launch_bounds__(kPairs)
+pair_scores_kernel(const float* __restrict__ u_aug,
+                   const float* __restrict__ items_aug,
+                   const int* __restrict__ idx, float* __restrict__ out, int U,
+                   int C, int I, int Wa, int kc, int stride) {
+  extern __shared__ __align__(16) float ps_smem[];
+  int* ids_s = reinterpret_cast<int*>(ps_smem);  // [kPairs]
+  float* it_s = ps_smem + kPairs;                // [kPairs, stride]
+  float* u_s = it_s + kPairs * stride;           // [users, stride]
+  const int tid = threadIdx.x;
+  const long long x0 = (long long)blockIdx.x * kPairs;
+  const int n_pairs = (int)min((long long)kPairs, (long long)U * C - x0);
+  const long long u0 = x0 / C;
+  const int n_users = (int)((x0 + n_pairs - 1) / C - u0) + 1;
+  const bool live = tid < n_pairs;
+  const int item = live ? idx[x0 + tid] : -1;
+  const bool in = item >= 0 && item < I;
+  const int my_u = live ? (int)((x0 + tid) / C - u0) : 0;
+  ids_s[tid] = in ? item : -1;
+  __syncthreads();
+
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < Wa; k0 += kc) {
+    const int cols = min(kc, Wa - k0);
+    stage_rows(it_s, stride, n_pairs, cols, [&](int r) -> const float* {
+      const int i = ids_s[r];  // -1: the pair scores NaN, nothing to stage
+      return i < 0 ? nullptr : items_aug + (size_t)i * Wa + k0;
+    });
+    stage_rows(u_s, stride, n_users, cols, [&](int r) -> const float* {
+      return u_aug + (size_t)(u0 + r) * Wa + k0;
+    });
+    __syncthreads();
+    if (live && in) {
+      const float* a = u_s + my_u * stride;
+      const float* b = it_s + tid * stride;
+      int k = 0;
+      for (; k + 4 <= cols; k += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(a + k);
+        const float4 bv = *reinterpret_cast<const float4*>(b + k);
+        acc = __fmaf_rn(av.x, bv.x, acc);
+        acc = __fmaf_rn(av.y, bv.y, acc);
+        acc = __fmaf_rn(av.z, bv.z, acc);
+        acc = __fmaf_rn(av.w, bv.w, acc);
+      }
+      for (; k < cols; ++k) acc = __fmaf_rn(a[k], b[k], acc);
+    }
+    __syncthreads();  // the buffers are free for the next chunk
+  }
+  if (live) out[x0 + tid] = in ? acc : NAN;
 }
 
 template <int TU, int TP>
@@ -351,15 +451,32 @@ int rank_counts_launch(const float* uT, const float* itT, const float* ts,
   return (int)cudaErrorInvalidValue;
 }
 
+// u_aug [U, Wa], items_aug [I, Wa], idx and out [U, C], all row-major.  kc
+// columns a staged chunk, rows `stride` floats apart (>= kc, 4 x odd), as
+// ops/rank_counts.py::pair_plan plans them.  Returns a cudaError_t code.
 int pair_scores_launch(const float* u_aug, const float* items_aug,
                        const int* idx, float* out, int U, int C, int I, int Wa,
-                       void* stream) {
-  const size_t n = (size_t)U * C;
+                       int kc, int stride, void* stream) {
+  const long long n = (long long)U * C;
   if (n == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-  pair_scores_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u_aug, items_aug, idx, out, U, C, I, Wa);
+  if (U < 0 || C < 0 || Wa <= 0 || kc <= 0 || kc > Wa || kc > kMaxChunk ||
+      stride < kc || stride % 8 != 4) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // A block's pairs span at most this many consecutive users.
+  const long long span = (kPairs + C - 2) / C + 1LL;
+  const long long users = span < kPairs ? span : kPairs;
+  const size_t bytes = sizeof(float) * (kPairs + (kPairs + users) * (size_t)stride);
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        pair_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (n + kPairs - 1) / kPairs;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  pair_scores_kernel<<<(unsigned)blocks, kPairs, bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      u_aug, items_aug, idx, out, U, C, I, Wa, kc, stride);
   return (int)cudaGetLastError();
 }
 

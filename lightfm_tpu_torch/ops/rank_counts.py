@@ -19,7 +19,10 @@ resident in shared memory, or, at rows too wide for two blocks an SM, is
 staged chunk by chunk beside the items, so any width runs.  Every score
 keeps row_dot's FMA chain, bitwise what :func:`pair_scores` computes.  The grid is (user
 tiles x item splits); :func:`launch_plan` picks the split so that the card
-fills at any user count.  See the source for the layout.
+fills at any user count.  :func:`pair_scores` runs blocks of 128
+consecutive (user, slot) pairs that stage their gathered rows into shared
+memory with coalesced copies before each thread runs its chain
+(:func:`pair_plan`).  See the source for the layouts.
 
 Each wrapper takes its plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises; there is no fallback.  ``launches``
@@ -47,6 +50,8 @@ BLOCK_ITEMS = 64
 MAX_CHUNK_ROWS = 80
 MAX_BLOCK_SMEM = 232_448
 SM_SMEM = 233_472
+# pair_scores: (user, slot) pairs a block owns (kPairs in the source).
+PAIR_BLOCK = 128
 
 launches = {"rank_counts": 0, "pair_scores": 0}
 
@@ -123,6 +128,32 @@ def launch_plan(U: int, I: int, n_sms: int, blocks_per_sm: int, block_users: int
     return best[1]
 
 
+class PairPlan(NamedTuple):
+    chunk_cols: int  # columns of a staged chunk
+    stride: int  # floats between staged rows: 4 x odd, >= chunk_cols
+    users: int  # most users one block's pairs span
+    smem_bytes: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def pair_plan(U: int, C: int, Wa: int) -> PairPlan:
+    """The launch of :func:`pair_scores` (``csrc/rank_counts.cu``): blocks
+    of ``PAIR_BLOCK`` consecutive pairs of the flat ``[U, C]`` output, each
+    staging its gathered item rows and its users' rows in chunks of at most
+    ``MAX_CHUNK_ROWS`` columns (the fewest chunks, evened out), ``stride``
+    floats apart.  The kernel's shared memory: the block's item ids, then
+    ``PAIR_BLOCK + users`` staged rows."""
+    if U < 1 or C < 1 or Wa < 1:
+        raise ValueError(f"pair_plan takes U, C, Wa >= 1, got {U}, {C}, {Wa}")
+    n_chunks = -(-Wa // MAX_CHUNK_ROWS)
+    kc = -(-Wa // n_chunks)
+    stride = 4 * (-(-kc // 4) | 1)  # float4 rows; 8 rows a quarter warp: 8 bank groups
+    users = min(PAIR_BLOCK, (PAIR_BLOCK + C - 2) // C + 1)
+    smem = 4 * (PAIR_BLOCK + (PAIR_BLOCK + users) * stride)
+    return PairPlan(kc, stride, users, smem, -(-U * C // PAIR_BLOCK))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -163,7 +194,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.rank_counts_launch.argtypes = [p, p, p, p] + [i] * 13 + [p]
         lib.rank_counts_launch.restype = i
-        lib.pair_scores_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.pair_scores_launch.argtypes = [p, p, p, p] + [i] * 6 + [p]
         lib.pair_scores_launch.restype = i
         lib.rank_counts_error_string.argtypes = [i]
         lib.rank_counts_error_string.restype = ctypes.c_char_p
@@ -274,7 +305,7 @@ def pair_scores(
     """``out[u, c] = u_aug[u] . items_aug[idx[u, c]]``, f32 [U, C].
 
     On the card every score is bitwise the one :func:`rank_counts` computes
-    for the same (user, item) pair: both kernels call one device routine.
+    for the same (user, item) pair: both kernels run the same FMA chain.
     ``idx`` is int32 in ``[0, I)``; the kernel writes NaN for an index
     outside it instead of reading out of bounds.
     """
@@ -296,10 +327,11 @@ def pair_scores(
     out = torch.empty((U, C), dtype=torch.float32, device=dev)
     if U == 0 or C == 0:
         return out
+    plan = pair_plan(U, C, Wa)
     lib = _lib()
     code = lib.pair_scores_launch(
         u_aug.data_ptr(), items_aug.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        U, C, I, Wa, _stream(dev),
+        U, C, I, Wa, plan.chunk_cols, plan.stride, _stream(dev),
     )
     _check_launch(lib, code, "pair_scores")
     launches["pair_scores"] += 1

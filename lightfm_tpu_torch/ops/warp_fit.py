@@ -7,7 +7,15 @@ launch.  The caller makes the steps' inputs: pre-shuffled packed batches,
 every step's negative candidates (slot-major) and the per-user positives.
 The kernel lives in ``csrc/warp_fit.cu`` (see its note for the design and
 bound); it is built at first use by :mod:`lightfm_tpu_torch.ops._build` and
-called through ctypes on PyTorch's current stream.
+called through ctypes on PyTorch's current stream.  It is ONE cooperative
+launch (``cudaLaunchCooperativeKernel``) of ``blocks`` blocks of 512
+threads, one block an SM by default: each step is a forward across the whole
+grid (a warp per example) and an apply in which block r updates the rows
+with ``row % blocks == r``, each closed by a grid-wide barrier.  A
+cooperative grid must be resident all at once, so a grid larger than the
+card holds (the occupancy API's blocks per SM x SMs) is refused and raises.
+Every row's sums are taken in the same order at any grid size: the result
+does not depend on ``blocks``.
 
 Semantics per step (``_train_kernel``, ``pallas_train.py:84-167``): the
 selected negative of example b is the first candidate k, in order, whose
@@ -49,11 +57,15 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.warp_fit_launch.argtypes = [
-            p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p, p, p, i, p,
+            p, p, p, p, p, p, p, i, i, i, i, i, i, f, f, p, p, p, p, i, i, p,
         ]
         lib.warp_fit_launch.restype = i
         lib.warp_fit_smem_key_capacity.argtypes = []
         lib.warp_fit_smem_key_capacity.restype = i
+        lib.warp_fit_sync_probe.argtypes = [i, i, p]
+        lib.warp_fit_sync_probe.restype = i
+        lib.warp_fit_chase_probe.argtypes = [p, i, p, p]
+        lib.warp_fit_chase_probe.restype = i
         lib.warp_fit_error_string.argtypes = [i]
         lib.warp_fit_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -155,13 +167,14 @@ def warp_fit_fused(user_table: torch.Tensor, user_acc: torch.Tensor,
                    item_table: torch.Tensor, item_acc: torch.Tensor,
                    batches: torch.Tensor, negatives: torch.Tensor,
                    positives: torch.Tensor, *, n_items: int, max_sampled: int,
-                   learning_rate: float):
+                   learning_rate: float, blocks: int | None = None):
     """K5: the whole WARP fit over ``batches`` (int32 [S, 8, B], the packed
     layout of ``train.TrainData``), ``negatives`` (int32 [S, 1, K*B],
     candidate k of example b at ``k*B + b``) and ``positives`` (int32
     [U, P], each user's positive item ids padded with an id no candidate
-    has), in ONE kernel launch.  Returns the new ``(user_table, user_acc,
-    item_table, item_acc)``."""
+    has), in ONE kernel launch.  ``blocks`` sizes the cooperative grid on
+    the card (default: one block an SM); the plain version has none.
+    Returns the new ``(user_table, user_acc, item_table, item_acc)``."""
     _check_args(user_table, user_acc, item_table, item_acc, batches, negatives,
                 positives, max_sampled)
     if user_table.device.type == "cpu":
@@ -175,18 +188,22 @@ def warp_fit_fused(user_table: torch.Tensor, user_acc: torch.Tensor,
     if S == 0 or B == 0:
         return out
     batches, negatives, positives = (x.contiguous() for x in (batches, negatives, positives))
-    lib = _lib()
-    N = 1 << max(0, (3 * B - 1).bit_length())  # keys of one step, a power of two
     dev = user_table.device
+    if blocks is None:  # one block an SM
+        blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _lib()
+    cap = 3 * B  # a block's key list holds every touch of a step
     lu = torch.empty((B, W), dtype=torch.float32, device=dev)
     gu = torch.empty((B, W), dtype=torch.float32, device=dev)
-    in_smem = N <= lib.warp_fit_smem_key_capacity()
-    keys = torch.empty((1 if in_smem else N,), dtype=torch.int64, device=dev)
+    touch = torch.empty((cap,), dtype=torch.int32, device=dev)
+    in_smem = cap <= lib.warp_fit_smem_key_capacity()
+    keys = torch.empty((1 if in_smem else blocks * 2 * cap,), dtype=torch.int64, device=dev)
     code = lib.warp_fit_launch(
         *(x.data_ptr() for x in out), batches.data_ptr(), negatives.data_ptr(),
         positives.data_ptr(), S, B, max_sampled, W, positives.shape[1], int(n_items),
         float(learning_rate), float(MAX_LOSS), lu.data_ptr(), gu.data_ptr(),
-        keys.data_ptr(), N, ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+        touch.data_ptr(), keys.data_ptr(), cap, int(blocks),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     if code:
         msg = lib.warp_fit_error_string(code).decode()

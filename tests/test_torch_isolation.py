@@ -11,7 +11,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "lightfm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "lightfm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("torch_*.py")))  # the port's chip probes
 
 
 def _run(code: str, cwd=ROOT, timeout=240):

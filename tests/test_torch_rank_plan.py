@@ -160,6 +160,114 @@ def test_fused_tier_predicate(D, T, device, fused):
             rc.kernel_shape(T, W + 1)
 
 
+_PAIR_WIDTHS = [73, 300, 721]
+_PAIR_SLOTS = [1, 10, 32, 416]
+STAGE_ROWS = 8  # csrc/rank_counts.cu's kStage: rows a warp loads before storing
+WARPS = rc.PAIR_BLOCK // 32
+
+
+def _block_users(U, C):
+    """Users spanned by each pair_scores block: (first user, count)."""
+    x0 = np.arange(0, U * C, rc.PAIR_BLOCK, dtype=np.int64)
+    last = np.minimum(x0 + rc.PAIR_BLOCK, U * C) - 1
+    return x0 // C, last // C - x0 // C + 1
+
+
+@pytest.mark.parametrize("C", _PAIR_SLOTS)
+@pytest.mark.parametrize("Wa", _PAIR_WIDTHS)
+def test_pair_plan_fits_and_covers(Wa, C):
+    for U in (1, 3, 256, 49_920, 50_000):
+        plan = rc.pair_plan(U, C, Wa)
+        assert plan.smem_bytes <= rc.MAX_BLOCK_SMEM
+        assert plan.smem_bytes == 4 * (rc.PAIR_BLOCK + (rc.PAIR_BLOCK + plan.users) * plan.stride)
+        # The chunks cover the row: the fewest of at most MAX_CHUNK_ROWS columns.
+        n_chunks = -(-Wa // plan.chunk_cols)
+        assert plan.chunk_cols <= rc.MAX_CHUNK_ROWS
+        assert n_chunks == -(-Wa // rc.MAX_CHUNK_ROWS)
+        assert plan.stride % 8 == 4 and plan.chunk_cols <= plan.stride < plan.chunk_cols + 8
+        # Every flat pair lies in exactly one block, and no block spans more
+        # users than the plan stages.
+        assert (plan.blocks - 1) * rc.PAIR_BLOCK < U * C <= plan.blocks * rc.PAIR_BLOCK
+        _, users = _block_users(U, C)
+        assert len(users) == plan.blocks and users.max() <= plan.users <= rc.PAIR_BLOCK
+
+
+def test_pair_plan_rejects_empty():
+    with pytest.raises(ValueError):
+        rc.pair_plan(0, 10, 73)
+    with pytest.raises(ValueError):
+        rc.pair_plan(10, 10, 0)
+
+
+def _staged_rows(n_rows):
+    """The kernel's staging walk (``stage_rows``): per round, warp w loads
+    rows w * 8 .. w * 8 + 7 of an operand's rows, then stores them; returns
+    each row's (round, warp)."""
+    seen = {}
+    for w in range(WARPS):
+        for rnd, r0 in enumerate(range(w * STAGE_ROWS, n_rows, WARPS * STAGE_ROWS)):
+            for r in range(r0, min(r0 + STAGE_ROWS, n_rows)):
+                assert r not in seen  # every row staged once
+                seen[r] = (rnd, w)
+    assert sorted(seen) == list(range(n_rows))
+    return seen
+
+
+@pytest.mark.parametrize("C", _PAIR_SLOTS)
+@pytest.mark.parametrize("Wa", _PAIR_WIDTHS)
+def test_pair_staging_walk_reads_back_each_pair(Wa, C):
+    """The kernel's shared-memory layout walked in numpy: per block and
+    chunk, the gathered item row of each pair at row ``tid``, then each
+    user row once, ``stride`` floats apart, each staged once by the warp
+    walk; reading back a pair's two rows chunk by chunk gives the rows
+    of ``u_aug`` and ``items_aug`` (an index outside [0, I) stages nothing
+    and scores NaN), and the 8 threads of a quarter warp, reading a float4
+    each at the same k, hit 8 distinct 16-byte bank groups."""
+    rng = np.random.RandomState(Wa + C)
+    U = max(2, 700 // C)
+    I = 257
+    u = rng.randint(-2, 3, (U, Wa)).astype(np.float32)
+    items = rng.randint(-2, 3, (I, Wa)).astype(np.float32)
+    idx = rng.randint(0, I, (U, C)).astype(np.int32)
+    idx.flat[::97] = I  # out of range
+    plan = rc.pair_plan(U, C, Wa)
+    P, stride = rc.PAIR_BLOCK, plan.stride
+    assert len(set((np.arange(8) * stride // 4) % 8)) == 8
+    flat = idx.ravel()
+    out = np.full(U * C, np.nan, np.float32)
+    starts, spans = _block_users(U, C)
+    for blk, (u0, n_users) in enumerate(zip(starts, spans)):
+        x = np.arange(blk * P, min((blk + 1) * P, U * C))
+        ids = flat[x]
+        n_pairs = len(x)
+        item_rows, user_rows = _staged_rows(n_pairs), _staged_rows(n_users)
+        assert max(rnd for rnd, _ in item_rows.values()) < P // (WARPS * STAGE_ROWS)
+        acc = np.zeros(n_pairs, np.float64)
+        for k0 in range(0, Wa, plan.chunk_cols):
+            cols = min(plan.chunk_cols, Wa - k0)
+            it_s = np.full((P, stride), np.nan, np.float32)
+            u_s = np.full((plan.users, stride), np.nan, np.float32)
+            for r in item_rows:
+                if 0 <= ids[r] < I:
+                    it_s[r, :cols] = items[ids[r], k0:k0 + cols]
+            for r in user_rows:
+                u_s[r, :cols] = u[u0 + r, k0:k0 + cols]
+            for t, (xx, i) in enumerate(zip(x, ids)):
+                if not 0 <= i < I:
+                    continue
+                a, b = u_s[xx // C - u0, :cols], it_s[t, :cols]
+                assert np.array_equal(a, u[xx // C, k0:k0 + cols])
+                assert np.array_equal(b, items[i, k0:k0 + cols])
+                acc[t] += float(a.astype(np.float64) @ b.astype(np.float64))
+        ok = (ids >= 0) & (ids < I)
+        out[x[ok]] = acc[ok]
+    want = rc.pair_scores_plain(torch.from_numpy(u), torch.from_numpy(items),
+                                torch.from_numpy(np.minimum(idx, I - 1))).numpy().ravel()
+    bad = flat >= I
+    assert np.isnan(out[bad]).all()
+    assert np.array_equal(out[~bad], want[~bad])  # integer-valued: exact
+
+
 def test_fused_tier_widths():
     assert (table_width(704) + 1, table_width(712) + 1) == (713, 721)
     assert rc.kernel_shape(10, 713).stream_users and rc.kernel_shape(10, 721).stream_users

@@ -142,6 +142,142 @@ def test_masked_examples_and_zero_steps_are_noops(setup):
         assert np.array_equal(x, setup["tables"][name]), name
 
 
+THREADS = 512  # csrc/warp_fit.cu's kThreads: 16 warps a block
+F32 = np.float32
+
+
+def _warp_score(u1, row):
+    """A warp's score of one row, as the kernel takes it: lane l holds the
+    fma chain over columns l, l + 32, ...; then the xor butterfly, lane 0's
+    sum."""
+    W = len(u1)
+    lanes = np.zeros(32, F32)
+    for c in range(W):  # fma(u1, row, acc): acc + u1*row, one rounding
+        lanes[c % 32] = F32(np.float64(u1[c]) * np.float64(row[c]) + np.float64(lanes[c % 32]))
+    for o in (16, 8, 4, 2, 1):
+        lanes = (lanes + lanes[np.arange(32) ^ o]).astype(F32)
+    return lanes[0]
+
+
+def _walk_k5(tables, batches, negs, positives, n_items, G, seed=0):
+    """A numpy walk of the cooperative K5 on G blocks: per step, the forward
+    with one warp per example (b = warp * G + block), its touches, then
+    each block's apply over the rows it owns (row % G == block): its keys
+    gathered in an arbitrary order (the kernel's shared-memory atomics),
+    ranked by the count of smaller keys, and each run summed in key order.
+    Returns the four arrays and, per step, every block's sorted key list."""
+    rng = np.random.RandomState(seed)
+    ut, ua, it, ia = (np.array(tables[k], F32) for k in
+                      ("user_table", "user_acc", "item_table", "item_acc"))
+    S, _, B = batches.shape
+    W = ut.shape[1]
+    lists = []
+    for s in range(S):
+        bt = batches[s]
+        ng = negs[s, 0].reshape(K, B)
+        lu = np.zeros((B, W), F32)
+        gu = np.zeros((B, W), F32)
+        touch = np.full(3 * B, -1, np.int64)
+        dealt = sorted(b for blk in range(G) for w in range(THREADS // 32)
+                       for b in range(w * G + blk, B, (THREADS // 32) * G))
+        assert dealt == list(range(B))  # every example exactly once
+        for b in range(B):
+            uid, iid = bt[0, b], bt[1, b]
+            u1 = ut[uid].copy()
+            u1[W - 1] = 1.0
+            u_bias = ut[uid, W - 1]
+            pos_pred = F32(_warp_score(u1, it[iid]) + u_bias)
+            sel = None
+            for k in range(K):
+                nk = ng[k, b]
+                if F32(_warp_score(u1, it[nk]) + u_bias) > F32(pos_pred - F32(1)):
+                    if nk not in positives[uid]:
+                        sel = (k, nk)
+                        break
+            L = F32(0)
+            y, wt = bt[2:4, b].view(F32)
+            if bt[4, b] > 0 and y > 0 and sel is not None:
+                rank_w = F32(np.log(F32(max(1.0, np.floor(F32(n_items - 1) / F32(sel[0] + 1))))))
+                L = min(F32(wt * rank_w), F32(10.0))
+            if L != 0:
+                lu[b] = L * u1
+                gu[b] = L * np.where(np.arange(W) == W - 1, F32(1), it[sel[1]] - it[iid])
+                touch[[b, B + b, 2 * B + b]] = (iid, sel[1], uid)
+        owners = {}
+        step_lists = []
+        for blk in range(G):
+            keys = [(int(i >= 2 * B), int(touch[i]), i - 2 * B if i >= 2 * B else i)
+                    for i in rng.permutation(3 * B) if touch[i] >= 0 and touch[i] % G == blk]
+            ranked = [None] * len(keys)
+            for key in keys:
+                ranked[sum(other < key for other in keys)] = key
+            assert ranked == sorted(keys)  # (side, row, position) order
+            step_lists.append(ranked)
+            for side, row, pos in ranked:
+                assert owners.setdefault((side, row), blk) == blk  # one owner a row
+            for (side, row), run in _runs(ranked):
+                g1 = np.zeros(W, F32)
+                g2 = np.zeros(W, F32)
+                for pos in run:  # position order within the run
+                    g = gu[pos] if side else (-lu[pos] if pos < B else lu[pos - B])
+                    g1 = (g1 + g).astype(F32)
+                    g2 = (g2 + (g * g).astype(F32)).astype(F32)
+                tab, acc = (ut, ua) if side else (it, ia)
+                a = acc[row].copy()
+                tab[row] = tab[row] - (F32(LR) * (F32(1) / np.sqrt(a))).astype(F32) * g1
+                acc[row] = a + g2
+        assert sum(map(len, step_lists)) == int((touch >= 0).sum())
+        lists.append(step_lists)
+    return (ut, ua, it, ia), lists
+
+
+def _runs(ranked):
+    out = []
+    for side, row, pos in ranked:
+        if out and out[-1][0] == (side, row):
+            out[-1][1].append(pos)
+        else:
+            out.append(((side, row), [pos]))
+    return out
+
+
+def _hot_steps(setup, n_steps, B):
+    """The first steps' first B examples, item 3 the positive of every
+    example but each fourth: one row takes most of a step's touches."""
+    bt = setup["batches"][:n_steps, :, :B].copy()
+    bt[:, 1, np.arange(B) % 4 != 0] = 3
+    ng = setup["negs"][:n_steps, 0].reshape(n_steps, K, -1)[:, :, :B].reshape(n_steps, 1, K * B)
+    return bt, np.ascontiguousarray(ng)
+
+
+@pytest.mark.parametrize("G", [1, 3, 8])
+@pytest.mark.parametrize("B_step", [128, 100])
+def test_partition_walk_equals_plain_bitwise(setup, G, B_step):
+    bt, ng = _hot_steps(setup, 3, B_step)
+    got, lists = _walk_k5(setup["tables"], bt, ng, setup["positives"], setup["ni"], G, seed=G)
+    assert max(len(x) for x in lists[0]) > B_step // 2  # the hot row's block
+    t = {k: torch.tensor(v) for k, v in setup["tables"].items()}
+    want = wf.warp_fit_fused_plain(
+        t["user_table"], t["user_acc"], t["item_table"], t["item_acc"], torch.tensor(bt),
+        torch.tensor(ng), torch.tensor(setup["positives"]), n_items=setup["ni"],
+        max_sampled=K, learning_rate=LR)
+    for name, g, w in zip(("user_table", "user_acc", "item_table", "item_acc"), got, want):
+        assert np.array_equal(g, w.numpy()), (name, float(np.abs(g - w.numpy()).max()))
+
+
+def test_partition_walk_matches_jax_interpret(setup):
+    bt, ng = _hot_steps(setup, 3, 128)
+    got, _ = _walk_k5(setup["tables"], bt, ng, setup["positives"], setup["ni"], 3)
+    t = setup["tables"]
+    want = jax_warp_fit_fused(
+        *(jnp.asarray(t[k]) for k in ("user_table", "user_acc", "item_table", "item_acc")),
+        jnp.asarray(bt), jnp.asarray(ng), jnp.asarray(setup["positives"]), n_items=setup["ni"],
+        max_sampled=K, learning_rate=LR, interpret=True)
+    for name, g, w in zip(("user_table", "user_acc", "item_table", "item_acc"), got, want):
+        w = np.asarray(w)
+        assert (np.abs(g - w) <= 1e-5 + 1e-5 * np.abs(w)).all(), name
+
+
 def test_wrapper_checks_arguments_and_counts_no_cpu_launch(setup):
     args = list(_args(setup, 2, torch.tensor))
     kw = dict(n_items=setup["ni"], max_sampled=K, learning_rate=LR)
