@@ -26,9 +26,16 @@ path at the ``warp-hybrid`` shape of ``bench.py`` (item features: identity +
 with the item features through the rank kernels, determinism, one BPR
 epoch and its own step spans.  Last, the whole-fit WARP kernel (K5)
 runs a 30-epoch fit at the size of the synthetic MovieLens 100k (943 users
-x 1,682 items, D=10) in one launch, against its plain version.  Any failed
-check raises, so the exit code is non-zero; the last stdout line is the
-device record, the line before it the per-kernel record.
+x 1,682 items, D=10) in one launch, against its plain version.  Phase 8
+drives the generic training path (plain PyTorch, no hand-written kernel):
+the quickstart's 30-epoch WARP fit at that size with ``fast_path="auto"``
+(quality against the port's own CPU fit), one epoch of every loss and
+schedule (and L2) on the card against the CPU with the same draws and
+bitwise against a repeat, hybrid logistic and chunked feature rows, two
+epochs at the ``synth-5m-warp-d64`` shape with ``fast_path="off"`` beside
+phase 5's fast epoch, and a mid-fit checkpoint resumed bit-exactly.  Any
+failed check raises, so the exit code is non-zero; the last stdout line is
+the device record, the line before it the per-kernel record.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -1257,12 +1264,13 @@ def step_breakdown(spans: Spans, epoch: int) -> dict:
     }
 
 
-def profiled_epoch(torch, train, model, seed: int) -> None:
-    """One more WARP epoch of the fitted model (through ``train.run_epochs``
-    on its staged data, so no host prep) under ``torch.profiler``: the
-    epoch's host-clock wall time, the device's busy time (the union of the
-    kernel and copy intervals the profiler saw), the idle share, and the
-    kernels that take the most device time."""
+def profiled_epoch(torch, train, model, seed: int) -> dict:
+    """One more epoch of the fitted model (through ``train.run_epochs`` on
+    its staged data, so no host prep) under ``torch.profiler``: the epoch's
+    host-clock wall time, the device's busy time (the union of the kernel
+    and copy intervals the profiler saw), the idle share, the number of
+    device intervals, and the kernels that take the most device time.
+    Returns the numbers (empty when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     args = (model._state, model._staged_train_data, [seed + 11], model._staged_hp,
@@ -1285,7 +1293,7 @@ def profiled_epoch(torch, train, model, seed: int) -> None:
             end = b
     if not spans:
         log(f"  profiled epoch: {wall_ms:.3f} ms wall; the profiler saw no device time")
-        return
+        return {}
     busy_ms = busy_us / 1e3
     log(f"  profiled epoch: {wall_ms:.3f} ms wall (host clock), device busy {busy_ms:.3f} ms "
         f"over {len(spans)} device intervals, idle share {1 - busy_ms / wall_ms:.4f}")
@@ -1296,6 +1304,8 @@ def profiled_epoch(torch, train, model, seed: int) -> None:
     )[:12]
     log("  top device kernels of the epoch (name, calls, ms): " + json.dumps(
         [(e.key[:60], e.count, _device_us(e) / 1e3) for e in top]))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            "device_intervals": len(spans)}
 
 
 def training_path(torch, seed: int) -> dict:
@@ -1360,7 +1370,7 @@ def training_path(torch, seed: int) -> dict:
     k1_calls = [r for r in spans.records if r["label"] == "k1" and r["args"] is not None]
     item_args, user_args = k1_calls[0]["args"], k1_calls[1]["args"]
     spans.records = []
-    profiled_epoch(torch, train, m, seed)
+    profile = profiled_epoch(torch, train, m, seed)
 
     path_launches = {"fit warp x15": launches}
     runs = []
@@ -1437,7 +1447,8 @@ def training_path(torch, seed: int) -> dict:
         del tw, aw, tk, ak, tp, ap, t_tol, a_tol
     log("  K1/K4 on the real step touches (ms, default precision): " + json.dumps(rows))
     torch.cuda.empty_cache()
-    return {"launches": launches, "rows": rows}
+    return {"launches": launches, "rows": rows, "steady_ms": steady_ms, "profile": profile,
+            "steps": steps}
 
 
 def hybrid_step_breakdown(spans: Spans, epoch: int) -> dict:
@@ -1850,6 +1861,222 @@ def warp_fit_path(torch, seed: int) -> dict:
     return row
 
 
+# Generic path (phase 8): the quickstart headline, the card against the CPU
+# with the same draws, feature layouts, the 5M-interaction shape with
+# fast_path="off", and mid-fit checkpoints.
+QS_AUC_FLOOR = 0.90  # quickstart train AUC (phase 7's K5 fit of the same shape: 0.990)
+QS_CPU_BAND = 0.02  # card vs the port's own CPU fit at the same seed
+GENERIC_FULL_EPOCHS = 2
+
+
+def state_excess(got, want):
+    """Largest ``|got - want|`` and largest ``|got - want| - 1e-5 * |want|``
+    over the eight state fields (the second at most 1e-5 passes)."""
+    diff = excess = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().cpu().double(), w.detach().cpu().double()
+        d = (g - w).abs()
+        diff = max(diff, float(d.max()))
+        excess = max(excess, float((d - 1e-5 * w.abs()).max()))
+    return diff, excess
+
+
+def heavy_features(n_items: int, seed: int = 5):
+    """Identity + the tags of :func:`tag_features`, plus 4 items carrying
+    300 more tags each: over a 99th percentile of 7 entries a row, so
+    ``_pad_features`` spills those rows into ``ChunkedRows`` overflow."""
+    rng = np.random.RandomState(seed)
+    base = tag_features(n_items)
+    heavy = [rng.choice(N_TAGS, 300, replace=False) for _ in range(4)]
+    rows = np.repeat([3, 97, 512, 1500], 300)
+    extra = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, np.concatenate(heavy) + n_items)),
+                          shape=base.shape)
+    out = (base + extra).tocsr()
+    out.data[:] = 1.0
+    return out
+
+
+def generic_path(torch, seed: int, fast: dict) -> None:
+    """Phase 8: ``LightFM.fit`` on the generic path (plain PyTorch, no
+    hand-written kernel).  Every path runs with the launch counts set to 0
+    just before it, and every one of them must stay 0."""
+    import tempfile
+
+    from lightfm_tpu_torch import LightFM, interop, load_model, train
+    from lightfm_tpu_torch.config import Hyperparams
+    from lightfm_tpu_torch.sparse import ChunkedRows, identity_rows
+    from lightfm_tpu_torch.state import table_width
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    path_launches = {}
+
+    def no_kernels(what: str, launches: dict) -> None:
+        path_launches[what] = launches
+        check(all(v == 0 for v in launches.values()), f"{what}: no hand-written kernel launched")
+
+    def finite(state) -> bool:
+        return all(bool(torch.isfinite(x).all()) for x in state)
+
+    # (a) The quickstart headline at full width: WARP, D=10, 30 epochs.
+    qs = planted_ml100k(seed)
+    coo = qs.tocoo()
+    log(f"phase 8: generic training path. (a) the quickstart, {FIT_USERS} users x {FIT_ITEMS} "
+        f"items, {qs.nnz} positives, WARP, D={FIT_D}, {FIT_EPOCHS} epochs, automatic batch, "
+        f"fast_path='auto'")
+    m = LightFM(loss="warp", no_components=FIT_D, random_state=seed)
+    spans = Spans(torch)
+    with spans.patch([(train, "_epoch", "epoch")]):
+        torch.cuda.synchronize()
+        _, launches = counted_all(m.fit, coo, epochs=FIT_EPOCHS)
+    torch.cuda.synchronize()
+    B = m._staged_batch_size
+    steps = m._staged_train_data.packed.shape[1] // B
+    check(m._staged_fast is False, "the quickstart fit took the generic path (item table "
+          f"{FIT_ITEMS} x {table_width(FIT_D)} under the fast path's 2^19)")
+    check(all(x.device.type == dev.type for x in m._state), f"the quickstart state sits on {dev.type}")
+    no_kernels(f"quickstart fit warp x{FIT_EPOCHS}", launches)
+    epochs = [r for r in spans.records if r["label"] == "epoch"]
+    epoch_ms = [r["start"].elapsed_time(r["stop"]) for r in epochs]
+    steady = float(np.median(epoch_ms[1:]))
+    log(f"  fit: {m.fit_stats_.wall_s:.3f} s wall (host clock, staging included), "
+        f"{m.fit_stats_.examples_per_sec:.1f} examples/s; batch {B}, {steps} steps per epoch; "
+        f"epoch ms (CUDA events): {json.dumps(epoch_ms)}; host ms to enqueue each epoch: "
+        f"{json.dumps([r['host_ms'] for r in epochs])}")
+    log(f"  steady epoch {steady:.3f} ms (median of epochs 2-{FIT_EPOCHS}) = {steady / steps:.4f} "
+        f"ms a step = {qs.nnz / (steady / 1e3):.1f} examples/s")
+    auc, p5 = fit_quality(m._state.user_table, m._state.item_table, qs)
+    t0 = time.perf_counter()
+    cpu = LightFM(loss="warp", no_components=FIT_D, random_state=seed, device="cpu")
+    cpu.fit(coo, epochs=FIT_EPOCHS)
+    cpu_s = time.perf_counter() - t0
+    cpu_auc, cpu_p5 = fit_quality(cpu._state.user_table, cpu._state.item_table, qs)
+    log(f"  train AUC / p@5: card {auc:.4f} / {p5:.4f}; the port's CPU fit at the same seed "
+        f"{cpu_auc:.4f} / {cpu_p5:.4f} ({cpu_s:.3f} s wall)")
+    check(auc > QS_AUC_FLOOR, f"quickstart train AUC {auc:.4f} > {QS_AUC_FLOOR}")
+    check(abs(auc - cpu_auc) <= QS_CPU_BAND,
+          f"quickstart AUC within {QS_CPU_BAND} of the CPU fit's ({abs(auc - cpu_auc):.4f})")
+    check(finite(m._state), "quickstart state is finite")
+    profiled_epoch(torch, train, m, seed)
+    del cpu
+
+    # (b) One epoch on the card and on the CPU with the same draws.
+    log("  (b) one epoch, card against CPU, draws made on the CPU and copied to the card")
+    W = table_width(FIT_D)
+    w1 = np.ones(coo.nnz, np.float32)
+    feats = (identity_rows(FIT_USERS), identity_rows(FIT_ITEMS))
+    configs = [(loss, sched, 0.0) for loss in ("logistic", "warp", "bpr", "warp-kos")
+               for sched in ("adagrad", "adadelta")]
+    configs += [("warp", "adagrad", 1e-4), ("logistic", "adagrad", 1e-4)]
+    same = {}
+    for loss, sched, alpha in configs:
+        name = f"{loss} {sched}" + (f" alpha={alpha:g}" if alpha else "")
+        hp = Hyperparams(loss=loss, no_components=FIT_D, learning_schedule=sched,
+                         item_alpha=alpha, user_alpha=alpha)
+        rng = np.random.RandomState(seed + 21)
+        arrays = {}
+        for side, n in (("item", FIT_ITEMS), ("user", FIT_USERS)):
+            t = np.zeros((n, W), np.float32)
+            t[:, :FIT_D] = (rng.rand(n, FIT_D) - 0.5) / FIT_D
+            arrays[f"{side}_table"] = t
+            arrays[f"{side}_acc"] = np.full_like(t, 0.0 if sched == "adadelta" else 1.0)
+            arrays[f"{side}_mom"] = np.zeros_like(t)
+        arrays["item_log_scale"] = arrays["user_log_scale"] = np.float32(0.0)
+        d_cpu = train.build_train_data(coo, w1, *feats, hp, B, "cpu")
+        d_dev = train.build_train_data(coo, w1, *feats, hp, B, dev)
+        draws = train.draw_generic_epoch(torch.Generator().manual_seed(seed + 3), d_cpu, hp, B)
+        draws_dev = train.GenericDraws(*(x if x is None else x.to(dev) for x in draws))
+        want = train.generic_epoch(interop.state_from_numpy(arrays, "cpu"), d_cpu, draws, hp, B)
+        got, launches = counted_all(train.generic_epoch, interop.state_from_numpy(arrays, dev),
+                                    d_dev, draws_dev, hp, B)
+        no_kernels(f"card epoch {name}", launches)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        again = train.generic_epoch(interop.state_from_numpy(arrays, dev), d_dev, draws_dev, hp, B)
+        stop.record()
+        torch.cuda.synchronize()
+        diff, excess = state_excess(got, want)
+        check(excess <= 1e-5, f"{name}: card within 1e-5 + 1e-5|x| of the CPU (max |d| {diff:.3g})")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{name}: a second card epoch is bitwise equal to the first")
+        moved = not torch.equal(got.item_table.cpu(), torch.from_numpy(arrays["item_table"]))
+        check(finite(got) and moved, f"{name}: the epoch moved the tables and left them finite")
+        same[name] = {"max_abs_diff": diff, "epoch_ms": start.elapsed_time(stop)}
+    log("  card against CPU, one epoch (max |d| over the state; the repeat's CUDA-event ms): "
+        + json.dumps(same))
+
+    # (c) Feature layouts: hybrid logistic, and WARP over ChunkedRows.
+    log("  (c) features: hybrid logistic (identity + tags), WARP over chunked rows")
+    for name, kw, item_features in (
+        ("logistic, identity + tags", dict(loss="logistic"), tag_features(FIT_ITEMS)),
+        ("warp, chunked rows", dict(loss="warp"), heavy_features(FIT_ITEMS)),
+    ):
+        runs = []
+        for _ in range(2):
+            r = LightFM(no_components=FIT_D, random_state=seed, **kw)
+            _, launches = counted_all(r.fit, coo, epochs=2, item_features=item_features)
+            runs.append(r)
+        no_kernels(f"fit {name} x2", launches)
+        check(runs[0]._staged_fast is False, f"{name}: the generic path")
+        if name.startswith("warp"):
+            f = runs[0]._staged_train_data.item_feats
+            check(isinstance(f, ChunkedRows),
+                  f"{name}: item features staged as ChunkedRows ({f.n_chunks} chunk(s) of "
+                  f"{f.over_idx.shape[2]} over a base of {f.base.max_nnz})")
+        check(finite(runs[0]._state), f"{name}: state is finite")
+        check(all(torch.equal(a, b) for a, b in zip(runs[0]._state, runs[1]._state)),
+              f"{name}: two same-seed 2-epoch fits are bitwise equal")
+        log(f"  {name}: 2 epochs {runs[1].fit_stats_.wall_s:.3f} s wall (staging included)")
+
+    # (d) The synth-5m-warp-d64 shape with fast_path="off".
+    big = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    log(f"  (d) {TRAIN_USERS} x {TRAIN_ITEMS}, {big.nnz} interactions, D={D}, batch {TRAIN_BATCH}, "
+        f"WARP, fast_path='off', {GENERIC_FULL_EPOCHS} epochs")
+    m = LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed,
+                fast_path="off")
+    spans = Spans(torch)
+    with spans.patch([(train, "_epoch", "epoch")]):
+        torch.cuda.synchronize()
+        _, launches = counted_all(m.fit, big, epochs=GENERIC_FULL_EPOCHS)
+    torch.cuda.synchronize()
+    no_kernels(f"fit warp x{GENERIC_FULL_EPOCHS} fast_path=off (5M)", launches)
+    check(m._staged_fast is False, "fast_path='off' took the generic path")
+    check(finite(m._state), "the 5M generic fit's state is finite")
+    big_steps = m._staged_train_data.packed.shape[1] // TRAIN_BATCH
+    epochs = [r for r in spans.records if r["label"] == "epoch"]
+    big_ms = [r["start"].elapsed_time(r["stop"]) for r in epochs]
+    prof = profiled_epoch(torch, train, m, seed)
+    per_step = prof.get("device_intervals", 0) / big_steps
+    log(f"  generic epoch ms (CUDA events): {json.dumps(big_ms)}; host ms to enqueue each: "
+        f"{json.dumps([r['host_ms'] for r in epochs])}; {big_steps} steps, "
+        f"{per_step:.1f} device operations (kernels and copies) a step (profiled epoch)")
+    log(f"  beside phase 5's fast epoch in this run: generic {big_ms[-1]:.3f} ms against fast "
+        f"{fast['steady_ms']:.3f} ms (median); device busy {prof.get('busy_ms', float('nan')):.3f} "
+        f"against {fast['profile'].get('busy_ms', float('nan')):.3f} ms, idle share "
+        f"{prof.get('idle_share', float('nan')):.4f} against "
+        f"{fast['profile'].get('idle_share', float('nan')):.4f}, device operations a step "
+        f"{per_step:.1f} against "
+        f"{fast['profile'].get('device_intervals', 0) / fast['steps']:.1f}")
+    del m, big
+    torch.cuda.empty_cache()
+
+    # (e) Mid-fit checkpoints: a 4-epoch fit against 2 epochs, a reload, 2 more.
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(loss="warp", no_components=FIT_D, random_state=seed)
+        full, launches = counted_all(LightFM(**kw).fit, coo, epochs=4, checkpoint_every_n_epochs=2,
+                                     checkpoint_path=f"{tmp}/full.npz")
+        no_kernels("checkpointed fit x4", launches)
+        LightFM(**kw).fit(coo, epochs=2, checkpoint_every_n_epochs=2, checkpoint_path=f"{tmp}/part.npz")
+        resumed = load_model(f"{tmp}/part.npz")
+        check(resumed.device == str(torch.device(DEVICE)), f"load_model resumes on {resumed.device}")
+        resumed.fit_partial(coo, epochs=2, checkpoint_every_n_epochs=2,
+                            checkpoint_path=f"{tmp}/part.npz")
+        check(all(torch.equal(a, b) for a, b in zip(resumed._state, full._state)),
+              "a 2-epoch checkpoint resumed for 2 more equals the 4-epoch fit bitwise")
+    log("  kernel launches by path (each counted from 0): " + json.dumps(path_launches))
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -1886,6 +2113,7 @@ def main() -> int:
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
+    generic_path(torch, args.seed, trained)
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
     k1_launches = trained["launches"]["sorted_adagrad_update"]
     check(k1_launches > 0, "sorted_adagrad_update launched on the training path")

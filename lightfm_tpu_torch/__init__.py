@@ -1,12 +1,13 @@
 """lightfm_tpu_torch: the PyTorch / CUDA port of lightfm_tpu.
 
-It trains models on the fast path (``fit`` with WARP, BPR or logistic,
-identity features, adagrad) and serves them (``predict``, ``predict_rank``
-and the evaluation metrics, ``recommend``) on an NVIDIA GPU through
-hand-written Hopper kernels; it imports neither ``jax`` nor
-``lightfm_tpu``.  Other training configurations are not ported yet (see
-ROADMAP.md): train them with ``lightfm_tpu`` and load the checkpoint with
-:func:`load_model`.
+It trains models (``fit``: every loss, schedule, L2 and feature layout
+on one device, on the fast path through hand-written Hopper kernels where
+it is eligible and on the plain-PyTorch generic path otherwise) and
+serves them (``predict``, ``predict_rank`` and the evaluation metrics,
+``recommend``) on an NVIDIA GPU; it imports neither ``jax`` nor
+``lightfm_tpu``.  Training over a device mesh is not ported yet (see
+ROADMAP.md).  Checkpoints interchange with ``lightfm_tpu``
+(:func:`save_model`, :func:`load_model`).
 """
 
 from lightfm_tpu_torch.checkpoint import load_model, save_model

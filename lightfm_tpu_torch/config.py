@@ -3,8 +3,9 @@
 A copy of ``lightfm_tpu/config.py:22-109``: the 12 constructor
 hyperparameters of the reference model (``lightfm/lightfm.py:189-241``)
 plus the JAX package's execution knobs.  Every field is kept, so
-``get_params`` and checkpoints interchange between the two packages; the
-fast-path knobs only take effect once training is ported.
+``get_params`` and checkpoints interchange between the two packages.  The
+fast-path knobs steer ``fast_warp``; ``pool_kernels="kernels"`` is a
+deprecated alias of ``"einsum"``.
 """
 
 from __future__ import annotations

@@ -42,8 +42,8 @@ fold, K1's and K3's sums, the transposed feature walk) to bf16, nearest
 even, and sums in fp32.  A bf16 x bf16 product is exact in fp32, so the CPU
 and the card agree.  The hybrid forward's feature sums have no precision
 argument in the JAX package and stay IEEE fp32.  The scatters sum
-duplicates in a fixed order (:func:`_scatter_add`), so two same-seed fits
-are bitwise equal.
+duplicates in a fixed order (:func:`lightfm_tpu_torch.ops.updates.scatter_add`),
+so two same-seed fits are bitwise equal.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
 from lightfm_tpu_torch.losses import Batch
 from lightfm_tpu_torch.ops.adagrad_update import sorted_adagrad_update
 from lightfm_tpu_torch.ops.grad_sums import sorted_grad_sums
+from lightfm_tpu_torch.ops.updates import scatter_add as _scatter_add
 from lightfm_tpu_torch.ops.representation import (
     batch_representation,
     ieee_fp32,
@@ -390,17 +391,6 @@ def _fold_gp_einsum(sel, u1q, shifts, precision: str):
 def _sorted_update(table, acc, sidx, wg, lr: float, precision: str):
     """Adagrad update over SORTED touches through K1 (in place)."""
     return sorted_adagrad_update(table, acc, sidx, wg.contiguous(), lr, precision)
-
-
-def _scatter_add(target: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> None:
-    """``target[rows] += values`` in place, duplicates summed in a fixed
-    order.  On CUDA ``index_add_`` uses atomics (its fp32 order changes from
-    run to run) while ``index_put_(accumulate=True)`` sorts the indices and
-    sums each row serially; on the CPU it is the other way round."""
-    if target.is_cuda:
-        target.index_put_((rows,), values, accumulate=True)
-    else:
-        target.index_add_(0, rows, values)
 
 
 def _scatter_update(table, acc, rows, g, g2, lr: float):

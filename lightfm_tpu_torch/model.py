@@ -4,10 +4,10 @@ Counterpart of ``lightfm_tpu/model.py:83-1420``: the constructor,
 ``fit``/``fit_partial``, ``predict``, ``predict_rank``, ``recommend``,
 ``get_*_representations``, ``get_params``/``set_params``, pickling and the
 twelve reference state arrays as numpy views that user code may edit in
-place.  ``fit`` trains on the fast path only (WARP, BPR or logistic with
-adagrad; identity features, or narrow feature matrices for WARP and BPR; see
-:meth:`LightFM.fit_partial`); a model
-can also take its state from a checkpoint
+place.  ``fit`` trains every single-device configuration of the JAX
+package, on the fast path where it is eligible and on the generic path
+otherwise (see :meth:`LightFM.fit_partial`), with optional mid-fit
+checkpoints; a model can also take its state from a checkpoint
 (:func:`lightfm_tpu_torch.load_model`, which reads files the JAX package
 writes) or from :mod:`lightfm_tpu_torch.interop`.
 
@@ -346,22 +346,34 @@ class LightFM:
     ):
         """Fit the model, resuming from the current state if already fitted.
 
-        Trains on the fast path (:mod:`lightfm_tpu_torch.fast_warp`): loss
-        ``warp``, ``bpr`` or ``logistic``, adagrad, no L2, an item table of
-        at least 2^19 elements (feature count x padded width),
-        ``fast_path="on"`` or ``"auto"`` on a CUDA device; identity features,
-        or for ``warp`` and ``bpr`` user/item feature matrices of at most
-        ``MAX_FAST_FEAT_NNZ`` = 16 padded entries per row (the hybrid path).
-        Other configurations raise ``NotImplementedError`` naming the
-        ROADMAP.md item that ports them.  Every epoch draws one seed from
-        ``random_state``, which seeds that epoch's ``torch.Generator``.
+        Trains on the fast path (:mod:`lightfm_tpu_torch.fast_warp`) where
+        ``fast_warp_eligible`` admits the configuration: loss ``warp``,
+        ``bpr`` or ``logistic``, adagrad, no L2, an item table of at least
+        2^19 elements (feature count x padded width), ``fast_path="on"`` or
+        ``"auto"`` on a CUDA device; identity features, or for ``warp`` and
+        ``bpr`` feature matrices of at most ``MAX_FAST_FEAT_NNZ`` = 16
+        padded entries per row.  Every other configuration trains on the
+        generic path (:func:`lightfm_tpu_torch.train.generic_epoch`): all
+        four losses, adagrad and adadelta, ``item_alpha``/``user_alpha``,
+        identity, padded and chunked features.  Every epoch draws one seed
+        from ``random_state``, which seeds that epoch's ``torch.Generator``.
+        Only a ``mesh`` raises ``NotImplementedError``.
+
+        ``checkpoint_every_n_epochs``/``checkpoint_path``: when set, the
+        model is saved atomically (``save_model`` to a temp file, then
+        ``os.replace``) every N epochs and at the fit's end.  Seeds are
+        drawn per chunk and the checkpoint keeps the ``RandomState`` at the
+        chunk boundary, so ``load_model(path).fit_partial`` for the
+        remaining epochs, at the same cadence, continues bit-exactly the
+        run that was cut (``lightfm_tpu/model.py:924-971``).
         """
         if checkpoint_every_n_epochs is not None:
-            raise NotImplementedError(
-                "checkpoint_every_n_epochs (mid-fit checkpoints) is not ported "
-                "yet (ROADMAP.md, item 5); save with lightfm_tpu_torch.save_model "
-                "after fit"
-            )
+            if int(checkpoint_every_n_epochs) < 1:
+                raise ValueError("checkpoint_every_n_epochs must be >= 1")
+            if not checkpoint_path:
+                raise ValueError(
+                    "checkpoint_path is required when checkpoint_every_n_epochs is set"
+                )
         if self.mesh is not None:
             raise NotImplementedError(
                 "training over a device mesh is not ported yet (ROADMAP.md, item 7)"
@@ -370,8 +382,6 @@ class LightFM:
         from lightfm_tpu_torch.observability import FitStats
         from lightfm_tpu_torch.state import init_state
         from lightfm_tpu_torch.train import (
-            _generic_path_error,
-            _no_op,
             build_train_data,
             choose_batch_size,
             run_epoch,
@@ -421,8 +431,6 @@ class LightFM:
             self._device,
         )
         fast = fast_warp_eligible(hp, data, self.mesh, self.example_shuffle, batch_size)
-        if not fast and not _no_op(hp):
-            raise _generic_path_error(hp)
         if fast and hp.loss in ("warp", "bpr"):
             # Hybrid aggregated update: stage the TRANSPOSED feature lists
             # so feature-table updates run scatter-free; None for identity
@@ -461,24 +469,43 @@ class LightFM:
         stats = FitStats(n_examples=len(interactions.data), epochs=epochs)
         # One seed per epoch from the numpy RandomState, whatever the
         # dispatch granularity (the reference's random-state contract).
-        seeds = self.random_state.randint(0, np.iinfo(np.int32).max, size=epochs).astype(
-            np.uint32
-        )
-        if verbose:
-            for i in self._progress(epochs, verbose=verbose):
-                self._state = run_epoch(
-                    self._state, data, int(seeds[i]), hp, batch_size, fast=fast
-                )
+        # With checkpoints they are drawn per chunk: the checkpoint keeps
+        # the RandomState at the boundary, so a resumed run's remaining
+        # chunks draw exactly the seeds an uninterrupted run would.
+        chunk = epochs if checkpoint_every_n_epochs is None else int(checkpoint_every_n_epochs)
+        progress = iter(self._progress(epochs, verbose=verbose)) if verbose else None
+        done = 0
+        while done < epochs:
+            n = min(chunk, epochs - done)
+            seeds = self.random_state.randint(0, np.iinfo(np.int32).max, size=n).astype(np.uint32)
+            if verbose:
+                # Epoch by epoch, so progress and finite checks track epochs.
+                for seed in seeds:
+                    next(progress, None)
+                    self._state = run_epoch(self._state, data, int(seed), hp, batch_size,
+                                            fast=fast)
+                    self._check_finite()
+            else:
+                self._state = run_epochs(self._state, data, seeds, hp, batch_size, fast=fast)
                 self._check_finite()
-        elif epochs > 0:
-            self._state = run_epochs(self._state, data, seeds, hp, batch_size, fast=fast)
-            self._check_finite()
+            done += n
+            if checkpoint_every_n_epochs is not None:
+                self._save_checkpoint(checkpoint_path)
 
         self.fit_stats_ = stats.finish()
         # Outstanding host mirrors are snapshots of the pre-fit state.
         self._drop_mirrors()
         self._drop_state_dependent_cache()
         return self
+
+    def _save_checkpoint(self, path):
+        """Atomic mid-fit checkpoint: write to a temp file, then rename, so
+        a kill during the write never leaves a truncated checkpoint."""
+        from lightfm_tpu_torch.checkpoint import save_model
+
+        tmp = f"{path}.tmp"
+        save_model(self, tmp)
+        os.replace(tmp, path)
 
     def _check_initialized(self):
         if self._state is None:

@@ -1,0 +1,129 @@
+"""Sparse batched optimizer updates (adagrad / adadelta) with lazy L2.
+
+Counterpart of ``lightfm_tpu/ops/updates.py:43`` (``sparse_update``), the
+update of the generic training path, in plain PyTorch.  A minibatch of
+"touches" ``(row idx, feature weight w, gradient g, mask)`` is applied to
+one table at once:
+
+- duplicates within a batch accumulate (scatter-add);
+- masked touches are exact no-ops: they add 0 and multiply by exactly 1;
+- adagrad reads the PRE-batch accumulator for every touch,
+  ``lr_local = lr * rsqrt(acc[idx])``, then ``acc += (w*g)^2``;
+- adadelta follows the JAX code (not its module docstring): ``acc`` and
+  ``mom`` are multiplied by ``rho`` once per unmasked touch, so a row
+  touched c times decays by ``rho^c``, and ``lr_local`` reads the updated
+  accumulator (``_lightfm_fast.pyx.template:359-374, 417-434``);
+- lazy L2 multiplies touched rows by ``1 + alpha * lr_local`` once per
+  touch (template:372,387,432,447); the global scale bookkeeping lives in
+  :mod:`lightfm_tpu_torch.losses` and :mod:`lightfm_tpu_torch.state`.
+
+The JAX function also has a small-table branch that swaps the scatters for
+one-hot matmuls (``updates.py:89-107``).  It exists only because scatters
+serialize on XLA:TPU; it gives the same sums in another order and returns
+zero statistics, which nothing reads (it runs only when no alpha is set).
+It is left out here: one function covers both of its regimes.
+
+Determinism on CUDA: every scatter-add goes through :func:`scatter_add`
+(``index_put_(accumulate=True)``, which sums each row's duplicates in a
+fixed order).  The scatter-multiplies (``index_reduce_(..., "prod")``) use
+atomics on CUDA, so their order changes from run to run, yet the result
+does not: every unmasked factor of a given (row, column) is the same bit
+pattern (``rho``, or ``1 + alpha * lr_local`` where ``lr_local`` depends on
+the row and column only), and a masked factor is exactly 1.0, so any order
+of the multiplications rounds the same way.
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+# index_reduce_ warns once per process that its API is in beta.
+warnings.filterwarnings("ignore", message=r"index_reduce\(\) is in beta")
+
+
+def scatter_add(target: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> None:
+    """``target[rows] += values`` in place, duplicates summed in a fixed
+    order.  On CUDA ``index_add_`` uses atomics (its fp32 order changes from
+    run to run) while ``index_put_(accumulate=True)`` sorts the indices and
+    sums each row serially; on the CPU it is the other way round."""
+    if target.is_cuda:
+        target.index_put_((rows,), values, accumulate=True)
+    else:
+        target.index_add_(0, rows, values)
+
+
+def scatter_mul(target: torch.Tensor, rows: torch.Tensor, factors: torch.Tensor) -> None:
+    """``target[rows] *= factors`` in place, once per touch.  Bitwise
+    independent of order only for factors that are equal per (row, column)
+    or exactly 1.0 (see the module docstring)."""
+    target.index_reduce_(0, rows, factors, "prod")
+
+
+def sparse_update(
+    table: torch.Tensor,  # [R, W] or [R]
+    acc: torch.Tensor,
+    mom: torch.Tensor,
+    idx: torch.Tensor,  # int [M]
+    w: torch.Tensor,  # f32 [M] feature weights
+    g: torch.Tensor,  # f32 [M, W] or [M] per-touch gradients
+    mask: torch.Tensor,  # bool [M]; False touches are no-ops
+    *,
+    adadelta: bool,
+    learning_rate: float,
+    alpha: float,
+    rho: float,
+    eps: float,
+    emb_dim: int | None = None,
+    need_stats: bool = True,
+):
+    """Apply one batched sparse optimizer step to ``table``, in place.
+
+    Returns ``(table, acc, mom, sum_local_lr, n_touches)``; the last two
+    sum over unmasked (touch, column) pairs, counting only the active
+    columns ``[0, emb_dim)`` and the bias column of a width-padded table
+    (all columns when ``emb_dim`` is None).  ``need_stats=False`` skips
+    them and returns None for both.
+    """
+    squeeze = table.dim() == 1
+    if squeeze:
+        table, acc, mom, g = table[:, None], acc[:, None], mom[:, None], g[:, None]
+    W = table.shape[1]
+    idx = idx.long()
+    mask_f = mask.to(table.dtype)[:, None]  # [M, 1]
+    wg = (w * mask.to(w.dtype))[:, None] * g  # [M, W]; masked touches add 0
+
+    if not adadelta:
+        # adagrad (template:376-389, 436-449).
+        lr_local = learning_rate * torch.rsqrt(acc[idx])  # [M, W]
+        scatter_add(table, idx, -(lr_local * wg))
+        scatter_add(acc, idx, wg * wg)
+    else:
+        # adadelta (template:359-374, 417-434).
+        decay = torch.where(mask, rho, 1.0).to(table.dtype)[:, None].expand_as(wg).contiguous()
+        scatter_mul(acc, idx, decay)
+        scatter_add(acc, idx, (1.0 - rho) * wg * wg)
+        lr_local = torch.sqrt(mom[idx] + eps) * torch.rsqrt(acc[idx] + eps)
+        update = lr_local * wg
+        scatter_mul(mom, idx, decay)
+        scatter_add(mom, idx, (1.0 - rho) * update * update)
+        scatter_add(table, idx, -update)
+
+    if alpha != 0.0:
+        # Lazy regularisation boost; masked touches get factor exactly 1.
+        scatter_mul(table, idx, 1.0 + alpha * lr_local * mask_f)
+
+    if not need_stats:
+        sum_lr = n_touches = None
+    elif emb_dim is not None and emb_dim + 1 < W:
+        cols = torch.arange(W, device=table.device)
+        col_active = ((cols < emb_dim) | (cols == W - 1)).to(table.dtype)
+        sum_lr = torch.sum(lr_local * mask_f * col_active[None, :])
+        n_touches = torch.sum(mask_f) * (emb_dim + 1)
+    else:
+        sum_lr = torch.sum(lr_local * mask_f)
+        n_touches = torch.sum(mask_f) * W
+    if squeeze:
+        table, acc, mom = table[:, 0], acc[:, 0], mom[:, 0]
+    return table, acc, mom, sum_lr, n_touches

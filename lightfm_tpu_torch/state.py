@@ -93,6 +93,12 @@ def init_state(
     )
 
 
+def _fold(table: torch.Tensor, log_scale: torch.Tensor) -> torch.Tensor:
+    inv = torch.exp(-log_scale)
+    out = table * inv
+    return torch.where(torch.isinf(table) & (inv == 0.0), torch.zeros_like(out), out)
+
+
 def fold_scales(state: ModelState) -> ModelState:
     """Fold the lazy-regularisation scales into the tables and reset them.
 
@@ -101,16 +107,10 @@ def fold_scales(state: ModelState) -> ModelState:
     an inf table entry times that 0 is patched to 0 (the reference's limit),
     while a genuine NaN stays NaN.
     """
-
-    def fold(table, log_scale):
-        inv = torch.exp(-log_scale)
-        out = table * inv
-        return torch.where(torch.isinf(table) & (inv == 0.0), torch.zeros_like(out), out)
-
     zero = torch.zeros_like(state.item_log_scale)
     return state._replace(
-        item_table=fold(state.item_table, state.item_log_scale),
-        user_table=fold(state.user_table, state.user_log_scale),
+        item_table=_fold(state.item_table, state.item_log_scale),
+        user_table=_fold(state.user_table, state.user_log_scale),
         item_log_scale=zero,
         user_log_scale=zero.clone(),
     )
@@ -118,9 +118,19 @@ def fold_scales(state: ModelState) -> ModelState:
 
 def maybe_fold_scales(state: ModelState) -> ModelState:
     """Fold when a scale accumulator grew past MAX_REG_SCALE
-    (``locked_regularize``, template:678-691)."""
-    needs = bool(
-        (state.item_log_scale > LOG_MAX_REG_SCALE)
-        | (state.user_log_scale > LOG_MAX_REG_SCALE)
+    (``locked_regularize``, template:678-691), decided on the device: the
+    fold runs with both log scales replaced by 0 where it is not needed,
+    and ``exp(-0) = 1`` leaves every entry as it is, so the result is
+    bitwise fold-or-not with no host sync."""
+    needs = (state.item_log_scale > LOG_MAX_REG_SCALE) | (
+        state.user_log_scale > LOG_MAX_REG_SCALE
     )
-    return fold_scales(state) if needs else state
+    zero = torch.zeros_like(state.item_log_scale)
+    item_log = torch.where(needs, state.item_log_scale, zero)
+    user_log = torch.where(needs, state.user_log_scale, zero)
+    return state._replace(
+        item_table=_fold(state.item_table, item_log),
+        user_table=_fold(state.user_table, user_log),
+        item_log_scale=torch.where(needs, zero, state.item_log_scale),
+        user_log_scale=torch.where(needs, zero, state.user_log_scale),
+    )

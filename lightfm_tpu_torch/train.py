@@ -2,10 +2,16 @@
 
 Counterpart of ``lightfm_tpu/train.py``.  The training set is staged once
 on the device as a packed int32 ``[8, n_pad]`` block plus, for the ranking
-losses, sorted per-user positives; every epoch then runs on the device.
-Only the fast path (:mod:`lightfm_tpu_torch.fast_warp`) is ported: the
-generic path (``train._epoch``'s non-fast branch, ``losses.py``'s steps,
-``ops/updates.py``) is ROADMAP.md item 3 and raises here.
+losses, sorted per-user positives; every epoch then runs on the device,
+on one of two paths:
+
+- the fast path (:mod:`lightfm_tpu_torch.fast_warp`), where
+  ``fast_warp_eligible`` lets it run;
+- the generic path (the non-fast branch of ``lightfm_tpu/train.py``'s
+  ``_epoch``): a global shuffle (:func:`_shuffle_global`), then one step
+  of :data:`lightfm_tpu_torch.losses.LOSS_STEPS` per batch, with the
+  lazy-L2 fold after each step and at the epoch's end.  It trains every
+  loss, both schedules, L2 and any feature layout, in plain PyTorch.
 
 Each epoch's random draws come from a ``torch.Generator`` on the device
 seeded with that epoch's seed (one per epoch, drawn by the model from its
@@ -21,8 +27,9 @@ import numpy as np
 import torch
 
 from lightfm_tpu_torch.config import Hyperparams
+from lightfm_tpu_torch.losses import LOSS_STEPS, _lazy_reg, kos_slots
 from lightfm_tpu_torch.sparse import PaddedSortedRows
-from lightfm_tpu_torch.state import ModelState
+from lightfm_tpu_torch.state import ModelState, fold_scales, maybe_fold_scales
 
 
 class TrainData(NamedTuple):
@@ -175,16 +182,86 @@ def build_train_data(
     )
 
 
-def _generic_path_error(hp: Hyperparams) -> NotImplementedError:
-    return NotImplementedError(
-        f"lightfm_tpu_torch trains only on the fast path (loss warp, bpr or "
-        f"logistic; adagrad; item_alpha = user_alpha = 0; identity features, or "
-        f"for warp and bpr feature matrices of at most 16 padded entries per row; "
-        f"an item table of at least 2^19 elements; fast_path 'on', or 'auto' "
-        f"on a CUDA device); this configuration (loss={hp.loss!r}, "
-        f"learning_schedule={hp.learning_schedule!r}, fast_path={hp.fast_path!r}) "
-        f"needs the generic path, which is not ported yet (ROADMAP.md, item 3)"
-    )
+def _shuffle_global(packed: torch.Tensor, keys: torch.Tensor, n_batches: int,
+                    batch_size: int) -> torch.Tensor:
+    """Global per-epoch permutation (``lightfm_tpu/train.py:208-220``): a
+    stable sort by one random u32 key per example (held as int64) carrying
+    the 8 packed rows, cut into ``[n_batches, 8, B]``.  Bitwise the JAX
+    package's given the same keys (ties keep their order in both)."""
+    order = torch.sort(keys, stable=True).indices
+    return packed[:, order].reshape(8, n_batches, batch_size).transpose(0, 1)
+
+
+class GenericDraws(NamedTuple):
+    """One generic epoch's random draws.
+
+    ``perm``: [n_pad] u32 sort keys (int64).  ``neg``: [n_batches, K, B]
+    negative item ids (WARP, k-OS).  ``tries``: [n_batches, B, T] positions
+    into ``train_items`` (BPR).  ``kos_u``: [n_batches, n, B] uniforms in
+    [0, 1) that become each example's positive slots once its batch is
+    known (:func:`lightfm_tpu_torch.losses.kos_slots`).  Fields a loss does
+    not use are None.
+    """
+
+    perm: torch.Tensor
+    neg: Optional[torch.Tensor] = None
+    tries: Optional[torch.Tensor] = None
+    kos_u: Optional[torch.Tensor] = None
+
+
+def draw_generic_epoch(gen: torch.Generator, data: TrainData, hp: Hyperparams,
+                       batch_size: int) -> GenericDraws:
+    """Draw one generic epoch's :class:`GenericDraws` from ``gen`` on its
+    device."""
+    dev = gen.device
+    n_pad = data.packed.shape[1]
+    n_batches = n_pad // batch_size
+    perm = torch.randint(0, 1 << 32, (n_pad,), generator=gen, device=dev, dtype=torch.int64)
+    neg = tries = kos_u = None
+    if hp.loss == "bpr":
+        n_ex = data.train_items.shape[0]
+        tries = torch.randint(0, n_ex, (n_batches, batch_size, hp.bpr_tries), generator=gen,
+                              device=dev)
+    if hp.loss == "warp-kos":
+        kos_u = torch.rand((n_batches, hp.n, batch_size), generator=gen, device=dev)
+    if hp.loss in ("warp", "warp-kos"):
+        neg = torch.randint(0, data.item_feats.n_rows, (n_batches, hp.max_sampled, batch_size),
+                            generator=gen, device=dev)
+    return GenericDraws(perm, neg, tries, kos_u)
+
+
+def _step_draws(draws: GenericDraws, b: int, batch, positives, hp: Hyperparams):
+    if hp.loss == "warp":
+        return draws.neg[b]
+    if hp.loss == "bpr":
+        return draws.tries[b]
+    if hp.loss == "warp-kos":
+        lens = positives.lengths[batch.user_ids.long()]
+        return kos_slots(draws.kos_u[b], lens), draws.neg[b]
+    return None
+
+
+def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: Hyperparams,
+                  batch_size: int) -> ModelState:
+    """One generic epoch (``lightfm_tpu/train.py:286-320``): the global
+    shuffle, then one step per batch; with L2 on, the mid-epoch rescale
+    guard after every step (``locked_regularize``, template:678-691) and a
+    fold at the end (template:779-781, 910-912).  No host sync per step."""
+    from lightfm_tpu_torch.fast_warp import _unpack_batch5
+
+    n_batches = data.packed.shape[1] // batch_size
+    shuffled = _shuffle_global(data.packed, draws.perm, n_batches, batch_size)
+    step = LOSS_STEPS[hp.loss]
+    lazy_reg = _lazy_reg(hp)
+    for b in range(n_batches):
+        batch = _unpack_batch5(shuffled[b])
+        state = step(state, batch, data.user_feats, data.item_feats, data.positives,
+                     data.train_items, hp, _step_draws(draws, b, batch, data.positives, hp))
+        if lazy_reg:
+            state = maybe_fold_scales(state)
+    if lazy_reg:
+        state = fold_scales(state)
+    return state
 
 
 def _no_op(hp: Hyperparams) -> bool:
@@ -195,11 +272,12 @@ def _no_op(hp: Hyperparams) -> bool:
 
 
 def _epoch(state, data, seed: int, hp, batch_size, fast):
+    gen = torch.Generator(device=data.packed.device).manual_seed(int(seed))
     if not fast:
-        raise _generic_path_error(hp)
+        return generic_epoch(state, data, draw_generic_epoch(gen, data, hp, batch_size), hp,
+                             batch_size)
     from lightfm_tpu_torch import fast_warp
 
-    gen = torch.Generator(device=data.packed.device).manual_seed(int(seed))
     draws = fast_warp.draw_epoch(gen, data, hp, batch_size)
     return fast_warp.fast_epoch(state, data, draws, hp, batch_size)
 
@@ -208,7 +286,7 @@ def run_epochs(state: ModelState, data: TrainData, seeds, hp: Hyperparams,
                batch_size: int, fast=False) -> ModelState:
     """One epoch per seed in ``seeds`` (uint32 values, one per epoch from
     the model's RandomState).  Returns a new state; the caller's tensors
-    are left as they were (the fast path updates a copy in place)."""
+    are left as they were (both paths update a copy in place)."""
     if _no_op(hp) or len(seeds) == 0:
         return state
     state = ModelState(*(x.clone() for x in state))

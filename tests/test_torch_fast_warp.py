@@ -24,6 +24,7 @@ import lightfm_tpu
 from lightfm_tpu import config as jax_config
 from lightfm_tpu import fast_warp as jax_fw
 from lightfm_tpu import train as jax_train
+from lightfm_tpu.evaluation import auc_score as jax_auc
 from lightfm_tpu.state import ModelState as JaxState
 
 import lightfm_tpu_torch
@@ -361,9 +362,9 @@ def test_eligibility_gate(planted, monkeypatch):
     ):
         hp = config.Hyperparams(**{**base, **kw})
         assert not fw.fast_warp_eligible(hp, data, None, "global", bs), kw
-        # The port has no generic path to fall back to: fit raises.
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, item 3"):
-            _tm(**kw).fit(planted, epochs=0)
+        # Off the fast path, fit trains on the generic path, as the JAX
+        # package's does.
+        _assert_generic_like_jax(planted, **kw)
     hp = config.Hyperparams(**base)
     assert not fw.fast_warp_eligible(hp, data, object(), "global", bs)  # a mesh
     assert not fw.fast_warp_eligible(hp, data, None, "local", bs)
@@ -377,26 +378,49 @@ def test_eligibility_gate(planted, monkeypatch):
                                      data, None, "global", bs)
     monkeypatch.delenv("LIGHTFM_TPU_FAST_WARP")
     for fast_path in ("auto", "off"):  # on the CPU neither engages
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, item 3"):
-            _tm(fast_path=fast_path).fit(planted, epochs=0)
+        _assert_generic_like_jax(planted, fast_path=fast_path)
+
+
+def _user_sample(coo, n=300):
+    """The first ``n`` users' rows (others emptied), so AUC ranks only them."""
+    csr = coo.tocsr()
+    keep = np.zeros(csr.shape[0], np.float32)
+    keep[:n] = 1.0
+    out = sp.diags(keep).dot(csr).tocsr()
+    out.eliminate_zeros()
+    return out
+
+
+def _assert_generic_like_jax(data, item_features=None, **kw):
+    """One epoch of ``fit`` takes the generic path, leaves a finite state
+    and lands within 0.03 sample AUC of the JAX package's fit of the same
+    configuration (each package's own ``auc_score``)."""
+    tm = _tm(**kw).fit(data, epochs=1, item_features=item_features)
+    assert tm._staged_fast is False, kw
+    assert all(bool(torch.isfinite(x).all()) for x in tm._state), kw
+    jkw = {**dict(loss="warp", no_components=64, random_state=10), **kw}
+    jm = lightfm_tpu.LightFM(**jkw).fit(data, epochs=1, item_features=item_features)
+    assert jm._staged_fast is False, kw
+    sample = _user_sample(data)
+    port = float(auc_score(tm, sample, item_features=item_features).mean())
+    ref = float(np.asarray(jax_auc(jm, sample, item_features=item_features)).mean())
+    assert abs(port - ref) <= 0.03, (kw, port, ref)
 
 
 def test_out_of_slice_configurations_raise(planted):
+    """Configurations the fast path turns down train on the generic path;
+    only a mesh still raises (ROADMAP.md item 7)."""
     def tags(density):
         return sp.hstack([sp.identity(8000, dtype=np.float32, format="csr"),
                           sp.random(8000, 50, density=density, format="csr",
                                     dtype=np.float32, random_state=0)], format="csr")
 
     # Hybrid WARP/BPR train on the fast path; hybrid logistic and feature
-    # rows wider than MAX_FAST_FEAT_NNZ need the generic path.
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _tm(loss="logistic").fit(planted, item_features=tags(0.05), epochs=1)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _tm().fit(planted, item_features=tags(0.5), epochs=1)
+    # rows wider than MAX_FAST_FEAT_NNZ on the generic path.
+    _assert_generic_like_jax(planted, item_features=tags(0.05), loss="logistic")
+    _assert_generic_like_jax(planted, item_features=tags(0.5))
     with pytest.raises(NotImplementedError, match="item 7"):
         _tm(mesh=object()).fit(planted, epochs=1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _tm().fit(planted, epochs=1, checkpoint_every_n_epochs=1, checkpoint_path="x.npz")
 
 
 def test_fast_step_invalid_rows_are_noops(planted):

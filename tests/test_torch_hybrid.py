@@ -37,6 +37,7 @@ from lightfm_tpu_torch.sparse import ChunkedRows, PaddedRows, identity_rows
 
 from test_fast_warp import _planted, _tag_feats
 from test_torch_fast_warp import (
+    _assert_generic_like_jax,
     _assert_states_close,
     _bf16_np,
     _interactions,
@@ -405,14 +406,10 @@ def test_hybrid_eligibility_gate(planted):
         m.fit(planted, epochs=0, item_features=feats)
         assert m._staged_fast == "einsum" and m._item_features_used and not m._user_features_used
     # Logistic's fast path is identity-only, and rows wider than
-    # MAX_FAST_FEAT_NNZ belong on the generic path: both raise (ROADMAP item 3).
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _tm(loss="logistic", no_components=64, fast_path="on").fit(planted, epochs=0,
-                                                                    item_features=feats)
+    # MAX_FAST_FEAT_NNZ belong on the generic path: both train there.
+    _assert_generic_like_jax(planted, item_features=feats, loss="logistic", fast_path="on")
     wide = _tag_feats(8000, per_item=fw.MAX_FAST_FEAT_NNZ + 1)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        _tm(loss="warp", no_components=64, fast_path="on").fit(planted, epochs=0,
-                                                                item_features=wide)
+    _assert_generic_like_jax(planted, item_features=wide, loss="warp", fast_path="on")
     assert fw._feats_eligible(identity_rows(5))
     padded = _tm()._pad_features(wide)
     assert padded.max_nnz > fw.MAX_FAST_FEAT_NNZ and not fw._feats_eligible(padded)
