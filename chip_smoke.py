@@ -33,8 +33,15 @@ the quickstart's 30-epoch WARP fit at that size with ``fast_path="auto"``
 schedule (and L2) on the card against the CPU with the same draws and
 bitwise against a repeat, hybrid logistic and chunked feature rows, two
 epochs at the ``synth-5m-warp-d64`` shape with ``fast_path="off"`` beside
-phase 5's fast epoch, and a mid-fit checkpoint resumed bit-exactly.  Any
-failed check raises, so the exit code is non-zero; the last stdout line is
+phase 5's fast epoch, and a mid-fit checkpoint resumed bit-exactly.  Phase 9
+drives the host side from raw data: phase 6's interactions and tags as a
+log of scrambled int64 external ids go through ``Dataset`` on the port's
+native ingest engine (its matrices, mapped back, equal phase 6's entry for
+entry; the log's first 500,000 rows also through the pure-Python path),
+``random_train_test_split`` (80/20), the hybrid fit on the train split
+through K1 and K3, and ``auc_score`` / ``precision_at_k`` on a 2,048-user
+sample of the test split through the rank kernels, with one more epoch
+under ``observability.trace``.  Any failed check raises, so the exit code is non-zero; the last stdout line is
 the device record, the line before it the per-kernel record.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
@@ -46,6 +53,7 @@ import argparse
 import contextlib
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2077,6 +2085,226 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Data pipeline (phase 9): phase 6's data as a log of raw external ids,
+# through the port's host side (Dataset on the native ingest engine,
+# random_train_test_split) into phase 6's hybrid fit on the train split and
+# an evaluation of the test split through the rank kernels.
+TEST_AUC_FLOOR = 0.80  # 80% of draws in the user's cluster: ~0.8 x 0.99 + 0.2 x 0.5
+PY_ROWS = 500_000  # the log's first rows, also run through the pure-Python path
+EVAL_USERS = 2048
+USER_BASE, ITEM_BASE, TAG_BASE, ID_STRIDE = 10**12, 2 * 10**12, 10**15, 7919
+
+
+def external_ids(seed: int, n_users: int, n_items: int):
+    """Injective int64 scrambles of the user and item indices, well away from
+    0..n, and tag ids above every item id (item identity features and tags
+    share one feature mapping, so a colliding tag would alias an item)."""
+    rng = np.random.RandomState(seed + 9)
+    users = USER_BASE + ID_STRIDE * rng.permutation(n_users).astype(np.int64)
+    items = ITEM_BASE + ID_STRIDE * rng.permutation(n_items).astype(np.int64)
+    return users, items, TAG_BASE + np.arange(N_TAGS, dtype=np.int64)
+
+
+def back_map(mapping: dict, decode) -> np.ndarray:
+    """``out[index] = decode(external id)`` over a ``Dataset`` mapping."""
+    keys = np.fromiter(mapping.keys(), np.int64, len(mapping))
+    index = np.fromiter(mapping.values(), np.int64, len(mapping))
+    out = np.empty(len(mapping), np.int64)
+    out[index] = decode(keys)
+    return out
+
+
+def same_entries(got, want) -> bool:
+    """Equal shape, dtype, stored-entry count and every entry's value."""
+    return (got.shape == want.shape and got.dtype == want.dtype and got.nnz == want.nnz
+            and (sp.csr_matrix(got) != sp.csr_matrix(want)).nnz == 0)
+
+
+def data_path(torch, seed: int) -> None:
+    """Phase 9: raw ids -> ``Dataset`` -> split -> hybrid ``fit`` ->
+    ``auc_score`` / ``precision_at_k`` on the card.  Stage times are the
+    host clock of the machine that runs this script."""
+    import glob
+    import tempfile
+
+    from lightfm_tpu_torch import LightFM, native, observability
+    from lightfm_tpu_torch.cross_validation import random_train_test_split
+    from lightfm_tpu_torch.data import Dataset
+    from lightfm_tpu_torch.evaluation import auc_score, precision_at_k
+
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    coo = timed("reference data", clustered_interactions, TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    feats_ref = tag_features(TRAIN_ITEMS)
+    user_ext, item_ext, tag_ext = external_ids(seed, TRAIN_USERS, TRAIN_ITEMS)
+    order = np.random.RandomState(seed + 10).permutation(coo.nnz)  # a log is not sorted
+    u_log, i_log = user_ext[coo.row[order]], item_ext[coo.col[order]]
+    w_log = coo.data[order]
+    tag_coo = feats_ref[:, TRAIN_ITEMS:].tocoo()  # a tag drawn twice for an item holds 2
+    times = tag_coo.data.astype(np.int64)
+    f_items = item_ext[np.repeat(tag_coo.row, times)]  # the feature file: one row a draw
+    f_tags = tag_ext[np.repeat(tag_coo.col, times)]
+    log(f"phase 9: data pipeline, a log of {coo.nnz} (user, item, weight) rows with int64 "
+        f"external ids over {TRAIN_USERS} users x {TRAIN_ITEMS} items, {f_items.size} "
+        f"(item, tag) rows over {N_TAGS} tags (reference data made in "
+        f"{secs['reference data']:.3f} s)")
+    check(timed("native engine build", lambda: native.AVAILABLE),
+          f"the port's native ingest engine is loaded ({native.target().name})")
+
+    # (a) The native path at full size.
+    engine = Spans(torch)
+    with engine.patch([(native, "map_ids", "map_ids"), (native, "lookup_ids", "lookup_ids")]):
+        ds = Dataset()
+        timed("Dataset.fit", ds.fit, u_log, i_log, item_features=tag_ext)
+        timed("Dataset.fit_partial (catalog)", ds.fit_partial, items=item_ext)
+        inter, weights = timed("build_interactions", ds.build_interactions, (u_log, i_log, w_log))
+        feats = timed("build_item_features normalize=False", ds.build_item_features,
+                      (f_items, f_tags), normalize=False)
+        feats_l1 = timed("build_item_features normalize=True", ds.build_item_features,
+                         (f_items, f_tags), normalize=True)
+        timed("identity block alone (normalize=False)", ds.build_item_features,
+              (np.empty(0, np.int64), np.empty(0, np.int64)), normalize=False)
+    calls = {k: sum(r["label"] == k for r in engine.records) for k in ("map_ids", "lookup_ids")}
+    check(calls["map_ids"] >= 4 and calls["lookup_ids"] >= 6,
+          f"Dataset took the native path ({json.dumps(calls)} engine calls)")
+    umap, _, imap, fmap = ds.mapping()
+    check(ds.interactions_shape() == coo.shape
+          and ds.model_dimensions() == (TRAIN_USERS, feats_ref.shape[1]),
+          f"mappings: {len(umap)} users, {len(imap)} items, {len(fmap)} item features")
+    user_of = np.argsort(user_ext - USER_BASE)  # the scrambles' inverse permutations
+    item_of = np.argsort(item_ext - ITEM_BASE)
+
+    def item_index(k):
+        return item_of[np.clip((k - ITEM_BASE) // ID_STRIDE, 0, TRAIN_ITEMS - 1)]
+
+    back_u = back_map(umap, lambda k: user_of[(k - USER_BASE) // ID_STRIDE])
+    back_i = back_map(imap, item_index)
+    back_f = back_map(fmap, lambda k: np.where(k >= TAG_BASE, TRAIN_ITEMS + k - TAG_BASE,
+                                               item_index(k)))
+
+    def mapped_back(m, rows, cols):
+        m = m.tocoo()
+        return sp.coo_matrix((m.data, (rows[m.row], cols[m.col])), shape=m.shape)
+
+    pattern = coo.copy()
+    pattern.data = np.ones(coo.nnz, np.int32)
+    check(same_entries(mapped_back(inter, back_u, back_i), pattern),
+          "interactions, mapped back, equal phase 6's matrix entry for entry (int32 ones)")
+    check(same_entries(mapped_back(weights, back_u, back_i), coo),
+          "weights, mapped back, equal phase 6's matrix entry for entry (float32)")
+    check(same_entries(mapped_back(feats, back_i, back_f), feats_ref),
+          f"item features (normalize=False), mapped back, equal tag_features entry for entry "
+          f"({feats.shape[0]} x {feats.shape[1]}, {feats.nnz} entries)")
+    row_sums = np.asarray(feats_l1.sum(axis=1), np.float64).ravel()
+    check(float(np.abs(row_sums - 1.0).max()) <= 1e-6,
+          f"every row of the normalize=True features sums to 1 (worst |sum - 1| "
+          f"{np.abs(row_sums - 1.0).max():.3g})")
+    del row_sums, feats_l1
+
+    # (b) The first PY_ROWS rows through the native and the pure-Python path.
+    n = min(PY_ROWS, coo.nnz)
+
+    def pipeline(users, items, tags, catalog, rows, feature_rows):
+        d = Dataset()
+        d.fit(users, items, item_features=tags)
+        d.fit_partial(items=catalog)
+        return d, d.build_interactions(rows), d.build_item_features(feature_rows, normalize=False)
+
+    fast = timed(f"native path, first {n} rows", pipeline, u_log[:n], i_log[:n], tag_ext,
+                 item_ext, (u_log[:n], i_log[:n], w_log[:n]), (f_items, f_tags))
+    slow = timed(f"Python path, first {n} rows", pipeline, u_log[:n].tolist(), i_log[:n].tolist(),
+                 tag_ext.tolist(), item_ext.tolist(),
+                 list(zip(u_log[:n].tolist(), i_log[:n].tolist(), w_log[:n].tolist())),
+                 [(e, [f]) for e, f in zip(f_items.tolist(), f_tags.tolist())])
+    check(fast[0].mapping() == slow[0].mapping(), "native and Python paths give equal mappings")
+    for what, a, b in (("interactions", fast[1][0], slow[1][0]), ("weights", fast[1][1], slow[1][1]),
+                       ("item features", fast[2], slow[2])):
+        a, b = a.tocoo(), b.tocoo()
+        check(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a.row, b.row)
+              and np.array_equal(a.col, b.col) and np.array_equal(a.data, b.data),
+              f"native and Python paths give equal {what} (row, col and value arrays)")
+    del fast, slow
+
+    # (c) Split, hybrid fit and evaluation on the card.
+    train, test = timed("random_train_test_split", random_train_test_split, inter,
+                        test_percentage=0.2, random_state=seed)
+    check(train.nnz == int(0.8 * inter.nnz) and train.nnz + test.nnz == inter.nnz,
+          f"split 80/20: {train.nnz} train, {test.nnz} test interactions")
+    m = LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed)
+    torch.cuda.synchronize()
+    _, fit_launches = counted_all(timed, f"fit warp-hybrid x{HYBRID_EPOCHS}", m.fit, train,
+                                  epochs=HYBRID_EPOCHS, item_features=feats)
+    check(m._staged_fast == "einsum", "the fit took the hybrid fast path")
+    check(fit_launches["sorted_adagrad_update"] > 0 and fit_launches["sorted_grad_sums"] > 0,
+          f"the fit launched K1 ({fit_launches['sorted_adagrad_update']}) and K3 "
+          f"({fit_launches['sorted_grad_sums']})")
+    train_csr, test_csr = train.tocsr(), test.tocsr()
+    auc_train = timed("train-sample AUC", auc_sample, m, train_csr, item_features=feats)
+    check(auc_train >= HYBRID_AUC_FLOOR,
+          f"train-sample AUC {auc_train:.4f} >= {HYBRID_AUC_FLOOR} after {HYBRID_EPOCHS} epochs")
+    has_test = np.flatnonzero(np.diff(test_csr.indptr))
+    users = np.random.RandomState(seed + 11).choice(has_test, min(EVAL_USERS, has_test.size),
+                                                    replace=False)
+    keep = np.zeros(test_csr.shape[0], np.float32)
+    keep[users] = 1.0
+    test_sub = sp.diags(keep).dot(test_csr).tocsr()
+    test_sub.eliminate_zeros()
+
+    def evaluate():
+        auc = auc_score(m, test_sub, train_interactions=train_csr, item_features=feats)
+        p5 = precision_at_k(m, test_sub, train_interactions=train_csr, k=5, item_features=feats)
+        return float(auc.mean()), float(p5.mean()), auc.size
+
+    (auc_test, p5_test, n_eval), eval_launches = counted_all(timed, "test auc_score + precision_at_k",
+                                                             evaluate)
+    log(f"  test split, {n_eval} sampled users ({test_sub.nnz} test interactions, train "
+        f"interactions excluded): AUC {auc_test:.4f}, precision@5 {p5_test:.4f}")
+    check(auc_test >= TEST_AUC_FLOOR, f"test AUC {auc_test:.4f} >= {TEST_AUC_FLOOR}")
+    check(eval_launches["rank_counts"] > 0 and eval_launches["pair_scores"] > 0,
+          f"the evaluation launched rank_counts ({eval_launches['rank_counts']}) and "
+          f"pair_scores ({eval_launches['pair_scores']})")
+
+    # (d) One more epoch untraced, then one under observability.trace, whose
+    # torch.profiler trace must name K1's and K3's kernels.
+    timed("fit_partial x1", m.fit_partial, train, epochs=1, item_features=feats)
+    with tempfile.TemporaryDirectory() as tmp:
+        def traced_epoch():
+            with observability.trace(tmp):
+                timed("fit_partial x1 under the profiler", m.fit_partial, train, epochs=1,
+                      item_features=feats)
+                t_stop = time.perf_counter()
+            secs["profiler stop + trace written"] = time.perf_counter() - t_stop
+
+        _, trace_launches = counted_all(traced_epoch)
+        paths = glob.glob(f"{tmp}/*.pt.trace.json")
+        check(len(paths) == 1, "the trace was written as one *.pt.trace.json")
+        log(f"  trace: {os.path.basename(paths[0])}, {os.path.getsize(paths[0]) / 1e6:.1f} MB")
+        with open(paths[0]) as fh:
+            events = json.load(fh)["traceEvents"]
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        named = {k: sum(k in name for name in kernels)
+                 for k in ("adagrad_segment_pass", "grad_sums_segment_pass")}
+        check(all(v > 0 for v in named.values()),
+              f"the trace parses and holds {len(kernels)} CUDA kernel events, K1's and K3's "
+              f"among them ({json.dumps(named)})")
+    log("  kernel launches by path (each counted from 0): " + json.dumps({
+        f"data path: fit warp-hybrid x{HYBRID_EPOCHS}": fit_launches,
+        "data path: test auc_score + precision_at_k": eval_launches,
+        "data path: traced epoch": trace_launches}))
+    check(bool(torch.isfinite(m._state.item_table).all()), "the tables are finite")
+    del m
+    torch.cuda.empty_cache()
+    secs["phase 9"] = time.perf_counter() - t_phase
+    log("  phase 9 host seconds by stage: " + json.dumps(secs))
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2114,6 +2342,7 @@ def main() -> int:
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
     generic_path(torch, args.seed, trained)
+    data_path(torch, args.seed)
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
     k1_launches = trained["launches"]["sorted_adagrad_update"]
     check(k1_launches > 0, "sorted_adagrad_update launched on the training path")

@@ -8,6 +8,14 @@ serves them (``predict``, ``predict_rank`` and the evaluation metrics,
 ``lightfm_tpu``.  Training over a device mesh is not ported yet (see
 ROADMAP.md).  Checkpoints interchange with ``lightfm_tpu``
 (:func:`save_model`, :func:`load_model`).
+
+The host side comes with it: :mod:`lightfm_tpu_torch.data` (``Dataset``:
+external ids to interaction, weight and feature matrices, on the native
+ingest engine of :mod:`lightfm_tpu_torch.native`, built with ``g++`` at
+first use), :mod:`lightfm_tpu_torch.cross_validation`
+(``random_train_test_split``), :mod:`lightfm_tpu_torch.datasets` (the
+MovieLens and StackExchange fetchers and ``generate_synthetic``) and
+``observability.trace`` (a ``torch.profiler`` trace).
 """
 
 from lightfm_tpu_torch.checkpoint import load_model, save_model

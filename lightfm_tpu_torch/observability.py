@@ -1,13 +1,47 @@
-"""Per-fit throughput counters (``LightFM.fit_stats_``).
+"""Observability: the profiler hook and per-fit throughput counters.
 
-Counterpart of ``lightfm_tpu/observability.py:30-55``.  The profiler hook
-``trace`` is not ported yet (ROADMAP.md, host side).
+Counterpart of ``lightfm_tpu/observability.py``: :func:`trace` records a
+``torch.profiler`` trace where the JAX package records a ``jax.profiler``
+one, and :class:`FitStats` is ``LightFM.fit_stats_``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Optional
+from typing import Iterator, Optional
+
+
+@contextlib.contextmanager
+def trace(logdir: str, device=None) -> Iterator[object]:
+    """Capture a profiler trace viewable in TensorBoard/Perfetto.
+
+    ``device=None`` means CUDA, as everywhere in the package: the trace
+    records CPU and CUDA activity, and a machine without a CUDA device
+    raises.  ``device="cpu"`` records CPU activity only.  The trace is
+    written on exit as ``<logdir>/<host>_<pid>.<time>.pt.trace.json``
+    (``torch.profiler.tensorboard_trace_handler``).  Yields the
+    ``torch.profiler.profile`` object.
+
+    Example::
+
+        with lightfm_tpu_torch.observability.trace("/tmp/trace"):
+            model.fit(interactions, epochs=10)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    from lightfm_tpu_torch import model
+
+    dev = model.resolve_device(device)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(logdir))) as prof:
+        yield prof
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 class FitStats:
