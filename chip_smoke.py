@@ -41,8 +41,20 @@ entry; the log's first 500,000 rows also through the pure-Python path),
 ``random_train_test_split`` (80/20), the hybrid fit on the train split
 through K1 and K3, and ``auc_score`` / ``precision_at_k`` on a 2,048-user
 sample of the test split through the rank kernels, with one more epoch
-under ``observability.trace``.  Any failed check raises, so the exit code is non-zero; the last stdout line is
-the device record, the line before it the per-kernel record.
+under ``observability.trace``.  Phase 10 drives multi-device training
+over ``torch.distributed`` in child processes of this script (the main
+process never holds a process group): (a) one NCCL rank fits the
+``synth-5m-warp-d64`` shape on the data-parallel fast path through K1,
+bitwise the fit without a mesh, and serves ``recommend`` through
+``top_k_sharded``; (b) two gloo ranks sharing the card fit 3 epochs there
+with bitwise-equal replicas, one step within the CPU tests' bound of the
+one-device step and the train-sample AUC within 0.005 of the one-device
+fit's, then at the quickstart size one generic epoch against one device,
+an example-sharded fit with the local shuffle and ``recommend`` over a
+(1, 2) mesh.  One card shows correctness only: gloo moves every collective
+through the host.  Any failed check raises, so the exit code is non-zero;
+the last stdout line is the device record, the line before it the
+per-kernel record.
 
 Needs a CUDA device: without one it exits non-zero and prints no result.
 """
@@ -2305,9 +2317,314 @@ def data_path(torch, seed: int) -> None:
     log("  phase 9 host seconds by stage: " + json.dumps(secs))
 
 
+# Phase 10: multi-device, in child processes (a process group lives in them
+# only).  (a) one NCCL rank; (b) two gloo ranks sharing cuda:0.  One card
+# shows correctness only: NCCL will not put two ranks on one device, and
+# gloo moves every collective through the host over loopback.
+MESH_NCCL_EPOCHS = 2
+MESH_GLOO_EPOCHS = 3
+MESH_AUC_BAND = 0.005  # (b): train-sample AUC against the one-device fit
+MESH_STEP_RTOL, MESH_STEP_ATOL = 2e-5, 2e-6  # tests/test_torch_parallel_fast.py
+MESH_STATE_SHARE = 0.99  # (b): share of entries within that bound after 3 epochs
+MESH_REC_USERS = 2048
+MESH_CHILD_TIMEOUT_S = 480
+MESH_PG_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _digests(state) -> dict:
+    import hashlib
+
+    return {name: hashlib.sha256(x.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+            for name, x in zip(type(state)._fields, state)}
+
+
+def _within(torch, got, want, rtol: float, atol: float):
+    """Share of the entries of the four tables and accumulators within
+    ``atol + rtol * |want|``, and the largest ``|got - want|``."""
+    inside, total, worst = 0, 0, 0.0
+    for name in ("item_table", "item_acc", "user_table", "user_acc"):
+        g, w = getattr(got, name), getattr(want, name)
+        d = (g - w).abs()
+        inside += int((d <= atol + rtol * w.abs()).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    return inside / total, worst
+
+
+def _mesh_fit(torch, model, mesh, coo, epochs: int):
+    """``model.fit`` over ``mesh`` with the launch counts from 0 and CUDA
+    events around each epoch; the collectives' host-clock time and bytes
+    per step."""
+    from lightfm_tpu_torch import train
+
+    spans = Spans(torch)
+    mesh.reset_stats()
+    with spans.patch([(train, "_epoch", "epoch")]):
+        torch.cuda.synchronize()
+        _, launches = counted_all(model.fit, coo, epochs=epochs)
+    torch.cuda.synchronize()
+    steps = model._staged_train_data.packed.shape[1] * (
+        mesh.shape["data"] if model._staged_train_data.examples_sharded else 1
+    ) // model._staged_batch_size * epochs
+    return {
+        "epoch_ms": [r["start"].elapsed_time(r["stop"]) for r in spans.records],
+        "collective_ms_per_step": mesh.stats["seconds"] * 1e3 / steps,
+        "collective_calls_per_step": mesh.stats["calls"] / steps,
+        "bytes_per_step": mesh.stats["bytes"] / steps,
+        "steps": steps, "launches": launches,
+    }
+
+
+def mesh_nccl_rank(torch, seed: int, rank: int) -> dict:
+    """(a) One NCCL rank, ``make_mesh(n_data=1)``: the data-parallel fast
+    path at the 5M shape through K1, bitwise the fit without a mesh;
+    ``recommend`` through ``top_k_sharded`` against ``top_k``."""
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=1)
+    check(mesh.device == torch.device("cuda", 0), f"the rank sits on {mesh.device}")
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+
+    def model(**kw):
+        return LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed,
+                       **kw)
+
+    m = model(mesh=mesh)
+    out = _mesh_fit(torch, m, mesh, coo, MESH_NCCL_EPOCHS)
+    check(m._staged_fast == "einsum", "the mesh fit took the data-parallel fast path")
+    k1 = out["launches"]["sorted_adagrad_update"]
+    check(k1 == 2 * out["steps"], f"K1 launched 2 x {out['steps']} steps = {k1} times on the mesh")
+    plain = model().fit(coo, epochs=MESH_NCCL_EPOCHS)
+    check(all(torch.equal(a, b) for a, b in zip(m._state, plain._state)),
+          "the one-rank NCCL mesh fit is bitwise the fit without a mesh")
+    users = np.arange(0, TRAIN_USERS, TRAIN_USERS // MESH_REC_USERS)
+    s_mesh, i_mesh = m.recommend(users, k=10)
+    s_one, i_one = plain.recommend(users, k=10)
+    check(np.array_equal(i_mesh, i_one), "recommend through top_k_sharded returns top_k's ids")
+    err = float(np.abs(s_mesh - s_one).max())
+    check(err <= 1e-6, f"and its scores (max |d| {err:.3g}, bitwise {np.array_equal(s_mesh, s_one)})")
+    out.update(rec_max_abs_err=err, rec_bitwise=bool(np.array_equal(s_mesh, s_one)))
+    return out
+
+
+def mesh_gloo_rank(torch, seed: int, rank: int) -> dict:
+    """(b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=2)``: the 5M
+    fit of 3 epochs (a rank's slice 65,536 examples, 4 pools), replicas
+    bitwise equal, one step within the CPU tests' bound of the one-device
+    step, the fit's train-sample AUC within MESH_AUC_BAND of the one-device
+    fit's; then at the quickstart size one generic epoch against one
+    device, an example-sharded fit with the local shuffle, and
+    ``recommend`` over a (1, 2) mesh."""
+    from lightfm_tpu_torch import LightFM, fast_warp as fw
+    from lightfm_tpu_torch.parallel import make_mesh
+    from lightfm_tpu_torch.parallel.mesh import barrier
+    from lightfm_tpu_torch.state import ModelState
+
+    mesh = make_mesh(n_data=2)
+    check(mesh.device == torch.device("cuda", 0), f"rank {rank} sits on {mesh.device}")
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    csr = coo.tocsr()
+
+    def model(**kw):
+        return LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed,
+                       fast_precision="highest", **kw)
+
+    m = model(mesh=mesh)
+    out = _mesh_fit(torch, m, mesh, coo, MESH_GLOO_EPOCHS)
+    check(m._staged_fast == "einsum", "the mesh fit took the data-parallel fast path")
+    k1 = out["launches"]["sorted_adagrad_update"]
+    check(k1 == 2 * out["steps"], f"K1 launched 2 x {out['steps']} steps = {k1} times on rank {rank}")
+    out["digests"] = _digests(m._state)
+    out["auc"] = auc_sample(m, csr)
+
+    # One step from the fitted state: the mesh step against the one-device step.
+    data, hp, B = m._staged_train_data, m._staged_hp, m._staged_batch_size
+    gen = torch.Generator(device=mesh.device).manual_seed(seed + 5)
+    draws = fw.draw_epoch(gen, data, hp, B)
+    shuffled, suid, sigma = fw.shuffle_item_sorted(
+        data.packed, draws.perm, data.packed.shape[1] // B, B, hp.shuffle_mode)
+    half = B // 2
+
+    def step(on_mesh):
+        state = ModelState(*(x.clone() for x in m._state))
+        cols = slice(rank * half, (rank + 1) * half) if on_mesh else slice(None)
+        fw.warp_pool_step(state, fw._unpack_batch5(shuffled[0][:, cols]), data.positives,
+                          suid[0], sigma[0], hp, draws.pool[0], draws.shifts[0],
+                          n_items=TRAIN_ITEMS, user_pallas=True, mesh=mesh if on_mesh else None)
+        return state
+
+    share, worst = _within(torch, step(True), step(False), MESH_STEP_RTOL, MESH_STEP_ATOL)
+    check(share == 1.0, f"one mesh step within {MESH_STEP_ATOL:g} + {MESH_STEP_RTOL:g}|x| of the "
+          f"one-device step (max |d| {worst:.3g})")
+    out["step_max_abs_err"] = worst
+    if rank == 0:
+        plain = model().fit(coo, epochs=MESH_GLOO_EPOCHS)
+        share, worst = _within(torch, m._state, plain._state, MESH_STEP_RTOL, MESH_STEP_ATOL)
+        out.update(state_share=share, state_max_abs_err=worst, plain_auc=auc_sample(plain, csr))
+        del plain
+    del m
+    torch.cuda.empty_cache()
+    barrier(mesh)
+
+    # The quickstart size: generic path, local shuffle, recommend over (1, 2).
+    qs = planted_ml100k(seed)
+    qcoo = qs.tocoo()
+
+    def quick(**kw):
+        return LightFM(loss="warp", no_components=FIT_D, random_state=seed, **kw)
+
+    g = quick(mesh=mesh, fast_path="off")
+    out["generic"] = _mesh_fit(torch, g, mesh, qcoo, 1)
+    check(g._staged_fast is False, "the quickstart mesh fit took the generic path")
+    one = quick(fast_path="off").fit(qcoo, epochs=1)
+    share, worst = _within(torch, g._state, one._state, MESH_STEP_RTOL, MESH_STEP_ATOL)
+    check(share == 1.0, f"one generic epoch over the mesh within the bound of one device "
+          f"(max |d| {worst:.3g}, bitwise {all(torch.equal(a, b) for a, b in zip(g._state, one._state))})")
+    out["generic_digests"] = _digests(g._state)
+    loc = quick(mesh=mesh, shard_examples=True, example_shuffle="local")
+    out["local"] = _mesh_fit(torch, loc, mesh, qcoo, FIT_EPOCHS)
+    auc, p5 = fit_quality(loc._state.user_table, loc._state.item_table, qs)
+    check(auc > QS_AUC_FLOOR, f"the example-sharded, locally shuffled fit: train AUC {auc:.4f} > "
+          f"{QS_AUC_FLOOR} (p@5 {p5:.4f})")
+    out.update(local_auc=auc, local_digests=_digests(loc._state))
+    mesh_12 = make_mesh(n_data=1, n_model=2)
+    one.mesh = mesh_12
+    s_mesh, i_mesh = one.recommend(np.arange(FIT_USERS), k=10, train_interactions=qs)
+    one.mesh = None
+    s_one, i_one = one.recommend(np.arange(FIT_USERS), k=10, train_interactions=qs)
+    check(np.array_equal(i_mesh, i_one), "recommend over a (1, 2) mesh returns top_k's ids")
+    err = float(np.abs(s_mesh - s_one).max())
+    check(err <= 1e-6, f"and its scores (max |d| {err:.3g})")
+    out["rec_max_abs_err"] = err
+    return out
+
+
+def mesh_rank_main(torch, args) -> int:
+    """A child of phase 10: join the process group, run this rank's part,
+    write its record, leave the group."""
+    import torch.distributed as dist
+
+    from lightfm_tpu_torch.parallel import initialize_multihost
+
+    initialize_multihost(backend=args.mesh_rank, init_method=f"tcp://localhost:{args.port}",
+                         world_size=args.world, rank=args.rank, timeout_s=MESH_PG_TIMEOUT_S)
+    try:
+        part = mesh_nccl_rank if args.mesh_rank == "nccl" else mesh_gloo_rank
+        out = part(torch, args.seed, args.rank)
+        with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(backend: str, world: int, seed: int, out_dir: str) -> list:
+    """Start ``world`` ranks of this script as children, wait for them with
+    a deadline (killing all of them past it), log their output, and return
+    their records; a child that fails fails the phase."""
+    cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--mesh-rank", backend,
+           "--world", str(world), "--port", str(_free_port()), "--out", out_dir]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"phase 10 ({backend}): a rank outlived {MESH_CHILD_TIMEOUT_S} s")
+    for r, text in enumerate(logs):
+        for line in text.splitlines():
+            log(f"    [{backend} rank {r}] {line}")
+    check(all(p.returncode == 0 for p in procs),
+          f"{backend}: {world} rank(s) exited 0 ({[p.returncode for p in procs]})")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def mesh_path(torch, seed: int) -> dict:
+    """Phase 10: multi-device over ``torch.distributed``, in child processes
+    (the main process never holds a process group).  Returns the launch
+    counts of each mesh path, from each child's own counts."""
+    import tempfile
+
+    from lightfm_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    _build.build_all()  # built by phase 1; the children only load the libraries
+    torch.cuda.empty_cache()
+    log(f"phase 10: multi-device. (a) one NCCL rank, (b) two gloo ranks sharing cuda:0; "
+        f"{TRAIN_USERS} users x {TRAIN_ITEMS} items, D={D}, batch {TRAIN_BATCH}")
+    card = nvidia_smi("name,power.limit")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "a"))
+        os.makedirs(os.path.join(tmp, "b"))
+        t0 = time.perf_counter()
+        (a,) = run_ranks("nccl", 1, seed, os.path.join(tmp, "a"))
+        secs_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = run_ranks("gloo", 2, seed, os.path.join(tmp, "b"))
+        secs_b = time.perf_counter() - t0
+    log(f"  (a) NCCL, 1 rank ({card}): epoch ms (CUDA events) {json.dumps(a['epoch_ms'])}; "
+        f"host enqueue of its collectives {a['collective_ms_per_step']:.4f} ms a step (host "
+        f"clock; NCCL runs them asynchronously, so this is not their time), "
+        f"{a['bytes_per_step'] / 1e6:.3f} MB sent a step; recommend bitwise {a['rec_bitwise']}")
+    for r, rec in enumerate(b):
+        log(f"  (b) gloo rank {r} ({card}; gloo moves every collective through the host over "
+            f"loopback, so these times say nothing about NCCL over NVLink): epoch ms (CUDA "
+            f"events) {json.dumps(rec['epoch_ms'])}; collectives "
+            f"{rec['collective_ms_per_step']:.3f} ms a step (host clock), "
+            f"{rec['collective_calls_per_step']:.1f} calls, {rec['bytes_per_step'] / 1e6:.3f} MB "
+            f"sent a step; quickstart generic "
+            f"epoch ms {json.dumps(rec['generic']['epoch_ms'])}, local-shuffle fit "
+            f"{FIT_EPOCHS} epochs median "
+            f"{float(np.median(rec['local']['epoch_ms'])):.3f} ms, collectives "
+            f"{rec['local']['collective_ms_per_step']:.3f} ms a step")
+    r0, r1 = b
+    for key in ("digests", "generic_digests", "local_digests"):
+        check(r0[key] == r1[key], f"(b) the two ranks' {key.replace('_', ' ')} are bitwise equal")
+    check(r0["auc"] == r1["auc"], f"(b) both replicas read train-sample AUC {r0['auc']:.4f}")
+    check(abs(r0["auc"] - r0["plain_auc"]) <= MESH_AUC_BAND,
+          f"(b) within {MESH_AUC_BAND} of the one-device fit's {r0['plain_auc']:.4f}")
+    check(r0["state_share"] >= MESH_STATE_SHARE,
+          f"(b) after {MESH_GLOO_EPOCHS} epochs {r0['state_share']:.6f} of the state's entries "
+          f"lie within the one-step bound of the one-device fit (>= {MESH_STATE_SHARE}; max |d| "
+          f"{r0['state_max_abs_err']:.3g})")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 10: {secs:.1f} s ((a) {secs_a:.1f}, (b) {secs_b:.1f}, child start-up included)")
+    return {
+        "mesh nccl x1 rank fit warp": a["launches"],
+        **{f"mesh gloo rank {r} fit warp": rec["launches"] for r, rec in enumerate(b)},
+        **{f"mesh gloo rank {r} quickstart local-shuffle fit": rec["local"]["launches"]
+           for r, rec in enumerate(b)},
+    }
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
+    # A child of phase 10 (run_ranks): its backend, rank and rendezvous.
+    p.add_argument("--mesh-rank", choices=("nccl", "gloo"), help=argparse.SUPPRESS)
+    p.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    p.add_argument("--out", help=argparse.SUPPRESS)
     args = p.parse_args()
 
     import torch
@@ -2315,6 +2632,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.mesh_rank:
+        return mesh_rank_main(torch, args)
     from lightfm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -2343,6 +2662,11 @@ def main() -> int:
     k5 = warp_fit_path(torch, args.seed)
     generic_path(torch, args.seed, trained)
     data_path(torch, args.seed)
+    mesh_launches = mesh_path(torch, args.seed)
+    log("  kernel launches by path, phase 10 (each counted from 0 in its rank): "
+        + json.dumps(mesh_launches))
+    check(all(v["sorted_adagrad_update"] > 0 for k, v in mesh_launches.items() if "fit warp" in k),
+          "sorted_adagrad_update launched on every rank's mesh fit")
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
     k1_launches = trained["launches"]["sorted_adagrad_update"]
     check(k1_launches > 0, "sorted_adagrad_update launched on the training path")
@@ -2352,6 +2676,7 @@ def main() -> int:
             "source": "lightfm_tpu_torch/csrc/adagrad_update.cu",
             "replaces": "lightfm_tpu/ops/pallas_update.py:234",
             "launches": k1_launches,
+            "launches_mesh": mesh_launches["mesh nccl x1 rank fit warp"]["sorted_adagrad_update"],
             "max_abs_err": max(k1_cases["worst"], items["max_abs_err"],
                                trained["rows"]["users"]["max_abs_err"]),
             "ms": items["ms"], "plain_ms": items["plain_ms"], "bound_ms": items["bound_ms"],

@@ -2,8 +2,9 @@
 batches + sorted adagrad updates, with identity features or, for WARP and
 BPR, narrow feature matrices (the hybrid path).
 
-Counterpart of ``lightfm_tpu/fast_warp.py``, single device (the
-data-parallel mesh layout is ROADMAP.md item 7).  Per step:
+Counterpart of ``lightfm_tpu/fast_warp.py``, on one device or
+data-parallel over a mesh of replicated tables (below; row and component
+partitions are ROADMAP.md item 7b).  Per step:
 
 - **Pool negatives** (WARP, BPR): one pool of ``P`` item ids and ``K``
   rotations; candidate k of example b is pool slot ``(b + shift_k) mod P``,
@@ -25,6 +26,14 @@ data-parallel mesh layout is ROADMAP.md item 7).  Per step:
   positives and users), a walk of the TRANSPOSED feature lists
   (:class:`TransposedFeats`) and a dense table move -- or, when no
   transposed structure is staged, by expanded per-(row, feature) scatters.
+
+- **Data parallel** (``mesh``, identity features only): every rank
+  shuffles the same epoch; each computes the forward pass and gradients of
+  its contiguous ``B / n_data`` columns of the item-sorted batch, then the
+  gradient streams are all-gathered over the data axis in rank order (so
+  the gathered positives are the batch's sorted ids, as K1 needs) and the
+  pool folds summed in rank order, and every rank applies the same
+  full-batch update (``lightfm_tpu/fast_warp.py:780-786``).
 
 Random draws are INPUTS: :func:`draw_epoch` draws an epoch's Feistel round
 keys (or per-example sort keys), pool ids and shifts from a
@@ -161,14 +170,23 @@ def _pool_mode(hp: Hyperparams) -> str:
     return "einsum"
 
 
-def fast_warp_eligible(hp: Hyperparams, data, mesh, shuffle: str, batch_size: int):
+def fast_warp_eligible(hp: Hyperparams, data, mesh, shuffle: str, batch_size: int,
+                       table_partition: str = "replicated", shard_examples: bool = False):
     """Static gate of the fast path (``lightfm_tpu/fast_warp.py:208-281``).
 
-    Returns ``False`` or the pool mode ``"einsum"``.  A mesh is "not
-    eligible" here: its data-parallel layout is not ported yet.  WARP and
-    BPR take feature matrices up to ``MAX_FAST_FEAT_NNZ`` padded entries per
-    row; logistic takes identity features only.
+    Returns ``False`` or the pool mode ``"einsum"``.  WARP and BPR take
+    feature matrices up to ``MAX_FAST_FEAT_NNZ`` padded entries per row;
+    logistic takes identity features only.  With a ``mesh`` (a
+    :class:`~lightfm_tpu_torch.parallel.Mesh`, else ``TypeError``) the path
+    runs data-parallel, gated on the layouts that keep it exact: replicated
+    tables, whole examples on every rank, the global shuffle, a batch that
+    divides the data axis, for the pairwise losses a slice of whole pools,
+    and identity features.
     """
+    if mesh is not None:
+        from lightfm_tpu_torch.parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     if not _enabled(hp, data.packed.device):
         return False
     if hp.loss not in ("warp", "bpr", "logistic") or hp.adadelta:
@@ -177,10 +195,21 @@ def fast_warp_eligible(hp: Hyperparams, data, mesh, shuffle: str, batch_size: in
         return False
     if hp.item_alpha != 0.0 or hp.user_alpha != 0.0:
         return False
-    if shuffle != "global" or mesh is not None:
+    if shuffle != "global":
         return False
-    if hp.loss == "logistic":
-        # Logistic's fast path is only the sorted update, over identity touches.
+    if mesh is not None:
+        if table_partition != "replicated" or shard_examples:
+            return False
+        n_data = mesh.shape["data"]
+        if batch_size % n_data:
+            return False
+        # Pairwise losses: each rank's slice holds whole pool cycles, so an
+        # example's slot (its position mod P) is the same in the slice.
+        if hp.loss != "logistic" and (batch_size // n_data) % min(POOL_SIZE, batch_size):
+            return False
+    if hp.loss == "logistic" or mesh is not None:
+        # Logistic's fast path is only the sorted update, over identity
+        # touches; the data-parallel layout gathers identity touches only.
         if not isinstance(data.user_feats, IdentityRows):
             return False
         if not isinstance(data.item_feats, IdentityRows):
@@ -597,6 +626,19 @@ def _apply_pool_updates(state: ModelState, uid, pos_ids, gi, gu, suid, sigma,
     return state
 
 
+def _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2):
+    """Under a mesh: the per-example streams all-gathered over the data axis
+    (rank order restores the sorted batch) and the pool folds summed in
+    rank order (``lightfm_tpu/fast_warp.py:880-885``); else as they are."""
+    if mesh is None:
+        return uid, pos_ids, gi, gu, gp, gp2
+    from lightfm_tpu_torch.parallel.mesh import all_gather_rows, sum_over_data
+
+    uid, pos_ids, gi, gu = all_gather_rows(mesh, uid, pos_ids, gi, gu)
+    gp, gp2 = sum_over_data(mesh, gp, gp2)
+    return uid, pos_ids, gi, gu, gp, gp2
+
+
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
@@ -605,7 +647,7 @@ def _apply_pool_updates(state: ModelState, uid, pos_ids, gi, gu, suid, sigma,
 def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
                    hp: Hyperparams, pool_ids, shifts, *, n_items: int,
                    user_pallas: bool, user_feats=None, item_feats=None,
-                   user_feats_T=None, item_feats_T=None) -> ModelState:
+                   user_feats_T=None, item_feats_T=None, mesh=None) -> ModelState:
     """One WARP step over an ITEM-SORTED batch (in place).
 
     Per example: the first margin violator that is not a positive among K
@@ -614,11 +656,16 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     ``pool_ids`` [P] and ``shifts`` [K] are this step's draws.  With a
     feature matrix on a side, its representations are the weighted feature
     sums (``compute_representation``, template:287-317).
+
+    Under a ``mesh`` the batch is this rank's contiguous slice of the
+    item-sorted batch (whole pools of ``P = len(pool_ids)``); ``suid`` and
+    ``sigma`` stay the full batch's.  The gradient streams are gathered and
+    the pool folds summed over the data axis before the update.
     """
     uid, pos_ids = batch.user_ids, batch.item_ids
     B = uid.shape[0]
     K = hp.max_sampled
-    P = min(POOL_SIZE, B)
+    P = pool_ids.shape[0]
     Q = B // P
     W = state.item_table.shape[1]
     prec = hp.fast_precision
@@ -657,6 +704,7 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     # Gradients (warp_update, template:537-649), fused [emb | bias] layout.
     gi = lossm[:, None] * u1
     gu = lossm[:, None] * with_unit_bias(nrep - prep)
+    uid, pos_ids, gi, gu, gp, gp2 = _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
         hp.learning_rate, user_pallas, prec, user_feats=user_feats,
@@ -667,17 +715,18 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
 def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
                   suid, sigma, hp: Hyperparams, pool_pos, shifts, *,
                   user_pallas: bool, user_feats=None, item_feats=None,
-                  user_feats_T=None, item_feats_T=None) -> ModelState:
+                  user_feats_T=None, item_feats_T=None, mesh=None) -> ModelState:
     """One BPR step over an ITEM-SORTED batch (in place).
 
     The negative is the first of ``bpr_tries`` pool candidates that is not
     a positive, else the last (``fit_bpr``, template:1074-1182); the pool is
-    ``train_items[pool_pos]``, the empirical item distribution.
+    ``train_items[pool_pos]``, the empirical item distribution.  Under a
+    ``mesh`` as :func:`warp_pool_step`.
     """
     uid, pos_ids = batch.user_ids, batch.item_ids
     B = uid.shape[0]
     T = hp.bpr_tries
-    P = min(POOL_SIZE, B)
+    P = pool_pos.shape[0]
     Q = B // P
     W = state.item_table.shape[1]
     prec = hp.fast_precision
@@ -709,6 +758,7 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
     gp, gp2 = _fold_gp_einsum(sel, u1q, shifts, prec)
     gi = lossm[:, None] * u1
     gu = lossm[:, None] * with_unit_bias(nrep - prep)
+    uid, pos_ids, gi, gu, gp, gp2 = _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
         hp.learning_rate, user_pallas, prec, user_feats=user_feats,
@@ -717,10 +767,11 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
 
 
 def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
-                         hp: Hyperparams, *, user_pallas: bool) -> ModelState:
+                         hp: Hyperparams, *, user_pallas: bool, mesh=None) -> ModelState:
     """One logistic step over an ITEM-SORTED batch (in place): sigmoid
     prediction, y = 1 iff value > 0, gradient ``weight * (pred - y)``
-    (``fit_logistic``, template:694-781); no sampling."""
+    (``fit_logistic``, template:694-781); no sampling.  Under a ``mesh`` as
+    :func:`warp_pool_step`, with no pool."""
     uid, iid = batch.user_ids, batch.item_ids
     u = state.user_table[uid.long()]
     irep = state.item_table[iid.long()]
@@ -730,6 +781,10 @@ def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
 
     gi = loss[:, None] * with_unit_bias(u)
     gu = loss[:, None] * with_unit_bias(irep)
+    if mesh is not None:
+        from lightfm_tpu_torch.parallel.mesh import all_gather_rows
+
+        uid, iid, gi, gu = all_gather_rows(mesh, uid, iid, gi, gu)
     prec = hp.fast_precision
     lr = hp.learning_rate
     _sorted_update(state.item_table, state.item_acc, iid, gi, lr, prec)
@@ -741,9 +796,11 @@ def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
 
 
 def fast_epoch(state: ModelState, data, draws: EpochDraws, hp: Hyperparams,
-               batch_size: int) -> ModelState:
+               batch_size: int, mesh=None) -> ModelState:
     """One fast-path epoch (in place): item-sorted shuffle, then one step
-    per batch with that batch's draws and the staged feature structures."""
+    per batch with that batch's draws and the staged feature structures.
+    Under a ``mesh`` every rank shuffles the whole epoch and steps over its
+    data coordinate's contiguous columns of each sorted batch."""
     n_pad = data.packed.shape[1]
     n_batches = n_pad // batch_size
     n_items = data.item_feats.n_rows
@@ -751,11 +808,17 @@ def fast_epoch(state: ModelState, data, draws: EpochDraws, hp: Hyperparams,
         data.packed, draws.perm, n_batches, batch_size, hp.shuffle_mode
     )
     feats = dict(user_feats=data.user_feats, item_feats=data.item_feats,
-                 user_feats_T=data.user_feats_T, item_feats_T=data.item_feats_T)
+                 user_feats_T=data.user_feats_T, item_feats_T=data.item_feats_T, mesh=mesh)
+    cols = slice(None)
+    if mesh is not None:
+        b_local = batch_size // mesh.shape["data"]
+        d = mesh.coords["data"]
+        cols = slice(d * b_local, (d + 1) * b_local)
     for b in range(n_batches):
-        batch = _unpack_batch5(shuffled[b])
+        batch = _unpack_batch5(shuffled[b][:, cols])
         if hp.loss == "logistic":
-            logistic_sorted_step(state, batch, suid[b], sigma[b], hp, user_pallas=hp.user_pallas)
+            logistic_sorted_step(state, batch, suid[b], sigma[b], hp, user_pallas=hp.user_pallas,
+                                 mesh=mesh)
         elif hp.loss == "bpr":
             bpr_pool_step(
                 state, batch, data.positives, data.train_items, suid[b], sigma[b],

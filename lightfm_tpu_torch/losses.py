@@ -28,6 +28,12 @@ k-OS        ``(positive slots [n, B], negative item ids [K, B])``
 logistic    None
 ==========  ===========================================================
 
+Under a device mesh (``mesh``) a step gets this rank's columns of the
+batch and of the draws; it computes their representations and losses,
+all-gathers them over the data axis and applies the whole batch's update
+on every rank, the single-device update (``lightfm_tpu/train.py:276-283``,
+where GSPMD does the same).
+
 The fast path's steps live in :mod:`lightfm_tpu_torch.fast_warp`.
 """
 
@@ -200,10 +206,25 @@ def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, 
     return _update_scales(state, hp, lr_i + lr_u, cnt_i + cnt_u, n_updates)
 
 
-def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, loss, upd):
+def _gather_examples(mesh, *per_example):
+    """Under a mesh: every rank's per-example quantities, all-gathered over
+    the data axis in rank order (its slices are contiguous columns of the
+    batch, so this is the whole batch in order); else as they are."""
+    if mesh is None:
+        return per_example
+    from lightfm_tpu_torch.parallel.mesh import all_gather_rows
+
+    return all_gather_rows(mesh, *per_example)
+
+
+def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, loss, upd,
+                     mesh=None):
     """Gradient step of the logistic loss (``update``, template:454-534):
     item grad = loss * user row, user grad = loss * item row, 1 in the bias
-    slot (so ``loss * with_unit_bias(rep)`` is the fused gradient)."""
+    slot (so ``loss * with_unit_bias(rep)`` is the fused gradient).  Under
+    a ``mesh`` the arguments are this rank's slice of the batch; the update
+    is the whole batch's."""
+    uid, iid, u_rep, i_rep, loss, upd = _gather_examples(mesh, uid, iid, u_rep, i_rep, loss, upd)
     g_item = loss[:, None] * with_unit_bias(u_rep)
     g_user = loss[:, None] * with_unit_bias(i_rep)
     item_t = _flatten_touches(item_feats, iid, g_item, upd)
@@ -212,10 +233,13 @@ def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, 
 
 
 def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
-                    u_rep, p_rep, n_rep, loss, upd):
+                    u_rep, p_rep, n_rep, loss, upd, mesh=None):
     """Gradient step of the ranking losses (``warp_update``,
     template:537-649): positive item -loss * user, negative item +loss *
-    user, user loss * (neg - pos); the bias column likewise with 1."""
+    user, user loss * (neg - pos); the bias column likewise with 1.  Under
+    a ``mesh`` as :func:`_apply_pointwise`."""
+    uid, pos_iid, neg_iid, u_rep, p_rep, n_rep, loss, upd = _gather_examples(
+        mesh, uid, pos_iid, neg_iid, u_rep, p_rep, n_rep, loss, upd)
     lu = loss[:, None] * with_unit_bias(u_rep)
     pos_t = _flatten_touches(item_feats, pos_iid, -lu, upd)
     neg_t = _flatten_touches(item_feats, neg_iid, lu, upd)
@@ -230,7 +254,7 @@ def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
 
 
 def logistic_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-                  train_items, hp: Hyperparams, draws=None) -> ModelState:
+                  train_items, hp: Hyperparams, draws=None, mesh=None) -> ModelState:
     """Batched sigmoid regression step (``fit_logistic``, template:694-781)."""
     u_scale, i_scale = _scales(state, hp)
     u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale)
@@ -240,7 +264,7 @@ def logistic_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
     y01 = (batch.y > 0).to(torch.float32)
     loss = batch.weight * (pred - y01)
     return _apply_pointwise(state, hp, user_feats, item_feats, batch.user_ids,
-                            batch.item_ids, u_rep, i_rep, loss, batch.valid)
+                            batch.item_ids, u_rep, i_rep, loss, batch.valid, mesh)
 
 
 def _score_candidates(u_rep: torch.Tensor, reps_flat: torch.Tensor, K: int) -> torch.Tensor:
@@ -297,7 +321,7 @@ def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, ne
 
 
 def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-              train_items, hp: Hyperparams, draws: torch.Tensor) -> ModelState:
+              train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None) -> ModelState:
     """Batched WARP step (``fit_warp``, template:784-912).  ``draws``: the
     ``[K, B]`` negative item ids.  The positive rides the negatives' gather
     as slot 0 of ``[K+1, B]``."""
@@ -324,11 +348,11 @@ def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives
 
     loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
-                           neg_id, u_rep, p_rep, n_rep, loss, upd_base & found)
+                           neg_id, u_rep, p_rep, n_rep, loss, upd_base & found, mesh)
 
 
 def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-             train_items, hp: Hyperparams, draws: torch.Tensor) -> ModelState:
+             train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None) -> ModelState:
     """Batched BPR step (``fit_bpr``, template:1074-1182).  ``draws``: the
     ``[B, T]`` positions into ``train_items``; negatives come from the
     empirical item distribution (template:1123-1127), rejecting the user's
@@ -349,7 +373,7 @@ def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
     p_rep, n_rep = reps_flat[:B], reps_flat[B:]
     loss = batch.weight * (1.0 - torch.sigmoid(preds[0] - preds[1]))  # template:1158
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
-                           neg_id, u_rep, p_rep, n_rep, loss, upd)
+                           neg_id, u_rep, p_rep, n_rep, loss, upd, mesh)
 
 
 def kos_slots(u: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -361,7 +385,7 @@ def kos_slots(u: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-                  train_items, hp: Hyperparams, draws) -> ModelState:
+                  train_items, hp: Hyperparams, draws, mesh=None) -> ModelState:
     """Batched k-OS WARP step (``fit_warp_kos``, template:915-1071).
     ``draws``: ``(slots [n, B], neg_ids [K, B])``, each slot in ``[0,
     max(#positives, 1))`` of its row.  Samples min(n, #positives) of the
@@ -402,7 +426,7 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
     )
     loss = torch.clamp(rank_weight, max=MAX_LOSS)  # template:1039-1043 (no weight)
     return _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_id, neg_id,
-                           u_rep, p_rep, n_rep, loss, upd_base & found)
+                           u_rep, p_rep, n_rep, loss, upd_base & found, mesh)
 
 
 LOSS_STEPS = {

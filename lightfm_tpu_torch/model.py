@@ -7,7 +7,8 @@ twelve reference state arrays as numpy views that user code may edit in
 place.  ``fit`` trains every single-device configuration of the JAX
 package, on the fast path where it is eligible and on the generic path
 otherwise (see :meth:`LightFM.fit_partial`), with optional mid-fit
-checkpoints; a model can also take its state from a checkpoint
+checkpoints, and data-parallel over a ``mesh`` of replicated tables; a
+model can also take its state from a checkpoint
 (:func:`lightfm_tpu_torch.load_model`, which reads files the JAX package
 writes) or from :mod:`lightfm_tpu_torch.interop`.
 
@@ -158,8 +159,8 @@ class LightFM:
         self.user_pallas = user_pallas
         self.fast_precision = fast_precision
         self.shuffle_mode = shuffle_mode
-        # Multi-device execution is not ported yet; kept so params and
-        # checkpoints interchange with the JAX package.
+        # A lightfm_tpu_torch.parallel.Mesh: data-parallel training over
+        # replicated tables, and recommend() through top_k_sharded.
         self.mesh = mesh
         self.table_partition = table_partition
         self.shard_examples = shard_examples
@@ -357,7 +358,21 @@ class LightFM:
         four losses, adagrad and adadelta, ``item_alpha``/``user_alpha``,
         identity, padded and chunked features.  Every epoch draws one seed
         from ``random_state``, which seeds that epoch's ``torch.Generator``.
-        Only a ``mesh`` raises ``NotImplementedError``.
+
+        With a ``mesh`` (:func:`lightfm_tpu_torch.parallel.make_mesh`) every
+        rank calls ``fit`` with the same arguments.  The model's device must
+        be the mesh's (``ValueError`` otherwise; the default ``"cuda"``
+        takes the mesh's card), and the state takes rank 0's values
+        (``shard_state``), every
+        rank takes rank 0's epoch seeds (each rank's ``random_state`` still
+        advances as without a mesh), and each rank computes its slice of
+        every batch, then applies the whole batch's update, so the replicas
+        stay bitwise equal: on the fast path where it is eligible
+        (replicated examples, identity features), else on the generic path,
+        with ``shard_examples`` and ``example_shuffle="local"``.  Only
+        ``table_partition="rows"`` and ``"components"`` (or an ``"auto"``
+        that resolves to rows) raise ``NotImplementedError`` (ROADMAP.md
+        item 7b).  Checkpoints are written by rank 0 alone.
 
         ``checkpoint_every_n_epochs``/``checkpoint_path``: when set, the
         model is saved atomically (``save_model`` to a temp file, then
@@ -374,10 +389,20 @@ class LightFM:
                 raise ValueError(
                     "checkpoint_path is required when checkpoint_every_n_epochs is set"
                 )
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "training over a device mesh is not ported yet (ROADMAP.md, item 7)"
-            )
+        mesh = self.mesh
+        if mesh is not None:
+            from lightfm_tpu_torch.parallel.mesh import (
+                check_mesh, check_partition, shard_state, shard_train_data)
+
+            check_mesh(mesh)
+            own, rank_dev = self._device, mesh.device
+            if own.type != rank_dev.type or own.index not in (None, rank_dev.index):
+                raise ValueError(
+                    f"the model's device ({own}) is not the mesh's ({rank_dev}): build the "
+                    "mesh with make_mesh(device=...) or the model with device=None"
+                )
+            if own != rank_dev:  # "cuda" names no card; the mesh gives its index
+                self.device = rank_dev
         from lightfm_tpu_torch.fast_warp import apply_env_overrides, fast_warp_eligible
         from lightfm_tpu_torch.observability import FitStats
         from lightfm_tpu_torch.state import init_state
@@ -430,7 +455,23 @@ class LightFM:
             batch_size,
             self._device,
         )
-        fast = fast_warp_eligible(hp, data, self.mesh, self.example_shuffle, batch_size)
+        if self._state is None:
+            self._state = init_state(
+                self.no_components,
+                item_features.shape[1],
+                user_features.shape[1],
+                self.random_state,
+                adagrad=(self.learning_schedule == "adagrad"),
+                device=self._device,
+            )
+        table_partition = self._resolve_table_partition()
+        if mesh is not None:
+            check_partition(table_partition)
+            self._state = shard_state(self._state, mesh, table_partition)
+            data = shard_train_data(data, mesh, self.shard_examples)
+        fast = fast_warp_eligible(hp, data, mesh, self.example_shuffle, batch_size,
+                                  table_partition=table_partition,
+                                  shard_examples=self.shard_examples)
         if fast and hp.loss in ("warp", "bpr"):
             # Hybrid aggregated update: stage the TRANSPOSED feature lists
             # so feature-table updates run scatter-free; None for identity
@@ -445,15 +486,6 @@ class LightFM:
                 ),
             )
 
-        if self._state is None:
-            self._state = init_state(
-                self.no_components,
-                item_features.shape[1],
-                user_features.shape[1],
-                self.random_state,
-                adagrad=(self.learning_schedule == "adagrad"),
-                device=self._device,
-            )
         # Remembered for serving defaults (recommend's catalog size).
         self.n_users_, self.n_items_ = n_users, n_items
         self._item_features_used = not self._is_identity(item_features)
@@ -478,15 +510,18 @@ class LightFM:
         while done < epochs:
             n = min(chunk, epochs - done)
             seeds = self.random_state.randint(0, np.iinfo(np.int32).max, size=n).astype(np.uint32)
+            if mesh is not None:
+                seeds = self._rank0_seeds(seeds)
+            epoch_kw = dict(fast=fast, mesh=mesh, shuffle=self.example_shuffle)
             if verbose:
                 # Epoch by epoch, so progress and finite checks track epochs.
                 for seed in seeds:
                     next(progress, None)
                     self._state = run_epoch(self._state, data, int(seed), hp, batch_size,
-                                            fast=fast)
+                                            **epoch_kw)
                     self._check_finite()
             else:
-                self._state = run_epochs(self._state, data, seeds, hp, batch_size, fast=fast)
+                self._state = run_epochs(self._state, data, seeds, hp, batch_size, **epoch_kw)
                 self._check_finite()
             done += n
             if checkpoint_every_n_epochs is not None:
@@ -498,14 +533,65 @@ class LightFM:
         self._drop_state_dependent_cache()
         return self
 
+    def _rank0_seeds(self, seeds: np.ndarray) -> np.ndarray:
+        """Rank 0's epoch seeds on every rank of the mesh, so every rank
+        draws the same epochs whatever its own ``random_state`` holds."""
+        from lightfm_tpu_torch.parallel.mesh import broadcast_from_rank0
+
+        t = torch.from_numpy(seeds.astype(np.int64)).to(self.mesh.device)
+        return broadcast_from_rank0(self.mesh, t)[0].cpu().numpy().astype(np.uint32)
+
+    def _resolve_table_partition(self):
+        """Resolve ``table_partition="auto"`` at fit time
+        (``lightfm_tpu/model.py:434-486``): replicated while the state
+        (tables and optimizer accumulators) fits the per-device budget, else
+        rows (ROADMAP.md item 7b, which raises).
+
+        Budget: ``LIGHTFM_TPU_REPLICATED_TABLE_BUDGET`` (bytes) when set,
+        else half the CUDA device's memory, else 4 GiB.
+        """
+        if self.table_partition != "auto":
+            return self.table_partition
+        if self.mesh is None or self._state is None:
+            return "replicated"
+        raw = os.environ.get("LIGHTFM_TPU_REPLICATED_TABLE_BUDGET")
+        if raw:
+            budget = int(raw)
+        elif self._device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self._device)[1] // 2
+        else:
+            budget = 4 << 30
+        state_bytes = sum(x.numel() * x.element_size() for x in self._state)
+        if state_bytes <= budget:
+            return "replicated"
+        if self.mesh.shape["model"] <= 1:
+            import warnings
+
+            warnings.warn(
+                f"table_partition='auto': model state ({state_bytes >> 20} "
+                f"MiB) exceeds the per-device replication budget "
+                f"({budget >> 20} MiB), but the mesh's 'model' axis has "
+                "size 1, so row-sharding cannot reduce per-device memory. "
+                "Build the mesh with n_model > 1 for capacity scaling.",
+                stacklevel=3,
+            )
+        return "rows"
+
     def _save_checkpoint(self, path):
         """Atomic mid-fit checkpoint: write to a temp file, then rename, so
-        a kill during the write never leaves a truncated checkpoint."""
+        a kill during the write never leaves a truncated checkpoint.  Under
+        a mesh rank 0 writes it (the replicas are equal) and every rank
+        waits until it is there."""
         from lightfm_tpu_torch.checkpoint import save_model
 
-        tmp = f"{path}.tmp"
-        save_model(self, tmp)
-        os.replace(tmp, path)
+        if self.mesh is None or self.mesh.rank == 0:
+            tmp = f"{path}.tmp"
+            save_model(self, tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            from lightfm_tpu_torch.parallel.mesh import barrier
+
+            barrier(self.mesh)
 
     def _check_initialized(self):
         if self._state is None:
@@ -949,9 +1035,10 @@ class LightFM:
         from lightfm_tpu_torch import retrieval
 
         if self.mesh is not None:
-            raise NotImplementedError(
-                "recommend() over a device mesh is not ported yet (ROADMAP.md)"
-            )
+            from lightfm_tpu_torch.parallel.mesh import check_mesh, check_partition
+
+            check_mesh(self.mesh)
+            check_partition(self._resolve_table_partition())
         user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
         if n_items is None:
             if item_features is not None:
@@ -1011,6 +1098,11 @@ class LightFM:
             scores, ids = retrieval.top_k_compressed(
                 self._state, user_feats, index, uid, k,
                 exclude_idx=exclude_idx, rerank_mult=rerank_mult,
+            )
+        elif mode in ("auto", "exact", "approx") and self.mesh is not None:
+            scores, ids = retrieval.top_k_sharded(
+                self._state, user_feats, item_feats, uid, k, n_items, self.mesh,
+                exclude_idx=exclude_idx,
             )
         elif mode in ("auto", "exact", "approx"):
             catalog = self._serving_cache.get(("catalog", n_items)) if cacheable else None

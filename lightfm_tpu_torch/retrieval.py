@@ -1,12 +1,14 @@
 """Candidate retrieval: batched top-k recommendation over the full catalog.
 
-Counterpart of ``lightfm_tpu/retrieval.py:47-370`` on one device.  Catalog
-scoring is one dense ``[B, Wa] x [Wa, I]`` IEEE fp32 matmul, so exact
-top-k over the whole catalog is cheap and batched:
+Counterpart of ``lightfm_tpu/retrieval.py:47-370``.  Catalog scoring is
+one dense ``[B, Wa] x [Wa, I]`` IEEE fp32 matmul, so exact top-k over the
+whole catalog is cheap and batched:
 
 - :func:`top_k`: exact scoring + ``torch.topk``; catalogs beyond
   ``STREAMING_CATALOG_LIMIT`` stream through item blocks (per-block top-k,
   one exact merge) so peak memory is O(B x item_block).
+- :func:`top_k_sharded`: the catalog split over a mesh's model axis, a
+  local top-k per rank, the candidates all-gathered and merged;
 - :class:`CompressedIndex`: two-stage scoring -- int8-quantized item rows
   give a coarse score, the top ``rerank_mult * k`` survivors are re-scored
   exactly in fp32.
@@ -127,6 +129,48 @@ def top_k(
         )
     item_aug = catalog if catalog is not None else build_catalog(state, item_feats, n_items)
     return _top_k_dense(state, user_feats, item_aug, user_ids, exclude_idx, k)
+
+
+def top_k_sharded(
+    state,
+    user_feats,
+    item_feats,
+    user_ids: torch.Tensor,
+    k: int,
+    n_items: int,
+    mesh,
+    exclude_idx: Optional[torch.Tensor] = None,
+):
+    """Item-sharded top-k over a mesh's model axis
+    (``lightfm_tpu/retrieval.py:201-275``).
+
+    The catalog is padded to a multiple of ``128 * n_model``; model-axis
+    rank m scores its contiguous ``1 / n_model`` of it in IEEE fp32, masks
+    the excluded ids that fall in its slice, and takes an exact local top-k
+    (the JAX package's ``method="approx"`` is served exact here, as
+    :func:`top_k` serves it).  The candidates are all-gathered over the
+    model axis and merged by one exact top-k, so the result is
+    :func:`top_k`'s; communication is O(n_model * k) a user.
+    """
+    from lightfm_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather_model
+
+    n_shards = mesh.shape[MODEL_AXIS]
+    item_aug = _pad_catalog(
+        catalog_representations(state, item_feats, n_items), n_items, 128 * n_shards
+    )
+    blk = item_aug.shape[0] // n_shards
+    start = mesh.coords[MODEL_AXIS] * blk
+    scores = _f32_dot(_user_aug(state, user_feats, user_ids), item_aug[start:start + blk].T)
+    if exclude_idx is not None:
+        local = torch.where(
+            (exclude_idx >= start) & (exclude_idx < start + blk), exclude_idx - start, blk,
+        )
+        _mask_exclusions(scores, local)
+    s, i = torch.topk(scores, min(k, blk), dim=1)
+    # [B, k] per rank -> [n_model * k, B] gathered -> [B, n_model * k].
+    s_all, i_all = all_gather_model(mesh, s.T, (i + start).T)
+    sg, j = torch.topk(s_all.T, k, dim=1)
+    return sg, i_all.T.gather(1, j)
 
 
 class CompressedIndex(NamedTuple):

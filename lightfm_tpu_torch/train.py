@@ -13,6 +13,13 @@ on one of two paths:
   lazy-L2 fold after each step and at the epoch's end.  It trains every
   loss, both schedules, L2 and any feature layout, in plain PyTorch.
 
+Under a device mesh (``mesh``, :mod:`lightfm_tpu_torch.parallel`) both
+paths run data-parallel: every rank draws the same epoch and steps over its
+data coordinate's columns of every batch, the steps all-gather what the
+update needs, and every rank applies the same update.  The generic path
+also takes example-sharded input (``TrainData.examples_sharded``) and the
+stratified local shuffle (:func:`_shuffle_local_slice`, ``shuffle="local"``).
+
 Each epoch's random draws come from a ``torch.Generator`` on the device
 seeded with that epoch's seed (one per epoch, drawn by the model from its
 numpy ``RandomState``), so seeded fits are deterministic.  The numbers
@@ -55,6 +62,9 @@ class TrainData(NamedTuple):
     # does not stage them (then feature updates run as scatters).
     user_feats_T: Optional[object] = None
     item_feats_T: Optional[object] = None
+    # Under a mesh with ``shard_examples``: ``packed`` holds only this
+    # rank's [8, n_pad / n_data] column slice (parallel.shard_train_data).
+    examples_sharded: bool = False
 
 
 def choose_batch_size(n_examples: int, requested: Optional[int]) -> int:
@@ -125,6 +135,25 @@ def positives_on_device(row, col, n_users: int, n_items: int, width: int) -> Pad
     )
 
 
+def build_positives(row: np.ndarray, col: np.ndarray, shape, loss: str, device,
+                    drow=None, dcol=None) -> PaddedSortedRows:
+    """The per-user positives of the COO columns ``row``/``col`` on
+    ``device`` (``drow``/``dcol``: the same columns already there).
+    warp/bpr only REJECT against this structure, where a width cap of 512
+    is statistically safe; k-OS samples from it and needs full rows."""
+    n_users, n_items = shape
+    n = len(row)
+    lengths = np.bincount(row, minlength=n_users) if n else np.zeros(n_users, np.int64)
+    width = int(lengths.max()) if n else 1  # dup-inclusive upper bound
+    if loss != "warp-kos":
+        width = min(width, 512)
+    width = max(8 * -(-width // 8), 8)
+    if drow is None:
+        drow = torch.from_numpy(np.ascontiguousarray(row, dtype=np.int32)).to(device)
+        dcol = torch.from_numpy(np.ascontiguousarray(col, dtype=np.int32)).to(device)
+    return positives_on_device(drow, dcol, n_users, n_items, width)
+
+
 def build_train_data(
     interactions_coo,
     sample_weight_data: np.ndarray,
@@ -162,14 +191,8 @@ def build_train_data(
     positives = None
     train_items = None
     if hp.loss in ("warp", "bpr", "warp-kos"):
-        # warp/bpr only REJECT against this structure, where a width cap is
-        # statistically safe; k-OS samples from it and needs full rows.
-        lengths = np.bincount(row, minlength=n_users) if n else np.zeros(n_users, np.int64)
-        width = int(lengths.max()) if n else 1  # dup-inclusive upper bound
-        if hp.loss != "warp-kos":
-            width = min(width, 512)
-        width = max(8 * -(-width // 8), 8)
-        positives = positives_on_device(drow, dcol, n_users, n_items, width)
+        positives = build_positives(row, col, (n_users, n_items), hp.loss, device,
+                                    drow=drow, dcol=dcol)
     if hp.loss == "bpr":
         train_items = dcol
 
@@ -192,6 +215,18 @@ def _shuffle_global(packed: torch.Tensor, keys: torch.Tensor, n_batches: int,
     return packed[:, order].reshape(8, n_batches, batch_size).transpose(0, 1)
 
 
+def _shuffle_local_slice(local: torch.Tensor, keys: torch.Tensor, n_batches: int) -> torch.Tensor:
+    """Stratified per-epoch shuffle for example-sharded input
+    (``lightfm_tpu/train.py:221-255``), one data coordinate's part: a stable
+    sort of its ``[8, n_local]`` slice by its ``n_local`` u32 keys (int64),
+    cut into ``[n_batches, 8, n_local / n_batches]``, its contiguous columns
+    of every global batch.  Every example still appears once per epoch,
+    every batch mixes all slices, and no exchange is needed; bitwise the
+    JAX package's block given the same ``[n_data, n_local]`` keys."""
+    order = torch.sort(keys, stable=True).indices
+    return local[:, order].reshape(8, n_batches, -1).transpose(0, 1)
+
+
 class GenericDraws(NamedTuple):
     """One generic epoch's random draws.
 
@@ -210,11 +245,14 @@ class GenericDraws(NamedTuple):
 
 
 def draw_generic_epoch(gen: torch.Generator, data: TrainData, hp: Hyperparams,
-                       batch_size: int) -> GenericDraws:
+                       batch_size: int, mesh=None) -> GenericDraws:
     """Draw one generic epoch's :class:`GenericDraws` from ``gen`` on its
-    device."""
+    device: the whole epoch's, also on a rank of a ``mesh`` that holds only
+    its slice of the examples."""
     dev = gen.device
     n_pad = data.packed.shape[1]
+    if data.examples_sharded:
+        n_pad *= mesh.shape["data"]
     n_batches = n_pad // batch_size
     perm = torch.randint(0, 1 << 32, (n_pad,), generator=gen, device=dev, dtype=torch.int64)
     neg = tries = kos_u = None
@@ -230,33 +268,72 @@ def draw_generic_epoch(gen: torch.Generator, data: TrainData, hp: Hyperparams,
     return GenericDraws(perm, neg, tries, kos_u)
 
 
-def _step_draws(draws: GenericDraws, b: int, batch, positives, hp: Hyperparams):
+def _step_draws(draws: GenericDraws, b: int, batch, positives, hp: Hyperparams,
+                cols=slice(None)):
+    """Step ``b``'s draws for the batch columns ``cols`` (a rank's slice)."""
     if hp.loss == "warp":
-        return draws.neg[b]
+        return draws.neg[b][:, cols]
     if hp.loss == "bpr":
-        return draws.tries[b]
+        return draws.tries[b][cols]
     if hp.loss == "warp-kos":
         lens = positives.lengths[batch.user_ids.long()]
-        return kos_slots(draws.kos_u[b], lens), draws.neg[b]
+        return kos_slots(draws.kos_u[b][:, cols], lens), draws.neg[b][:, cols]
     return None
 
 
+def _epoch_batches(data: TrainData, draws: GenericDraws, batch_size: int, mesh, shuffle: str):
+    """This rank's ``[n_batches, 8, B_local]`` shuffled batches and its
+    column slice of every batch.  No mesh: the global shuffle, whole
+    batches.  A mesh: the global shuffle over the whole block (all-gathered
+    once when the examples are sharded), or the local shuffle of the rank's
+    own slice; either way the rank keeps its data coordinate's columns."""
+    from lightfm_tpu_torch.parallel.mesh import DATA_AXIS, all_gather_rows, shard_columns
+
+    n_local = data.packed.shape[1]
+    if mesh is None:
+        n_batches = n_local // batch_size
+        return _shuffle_global(data.packed, draws.perm, n_batches, batch_size), slice(None)
+    n_data, d = mesh.shape[DATA_AXIS], mesh.coords[DATA_AXIS]
+    n_pad = n_local * n_data if data.examples_sharded else n_local
+    n_batches = n_pad // batch_size
+    if batch_size % n_data:
+        raise ValueError(f"batch_size ({batch_size}) must divide the data axis ({n_data})")
+    b_local = batch_size // n_data
+    cols = slice(d * b_local, (d + 1) * b_local)
+    if shuffle == "local":
+        local = data.packed if data.examples_sharded else shard_columns(data.packed, mesh)
+        keys = draws.perm.reshape(n_data, -1)[d]
+        return _shuffle_local_slice(local, keys, n_batches), cols
+    packed = data.packed
+    if data.examples_sharded:
+        # The exchange XLA inserts for a sort over a sharded axis.
+        packed = all_gather_rows(mesh, packed.T)[0].T
+    return _shuffle_global(packed, draws.perm, n_batches, batch_size)[:, :, cols], cols
+
+
 def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: Hyperparams,
-                  batch_size: int) -> ModelState:
-    """One generic epoch (``lightfm_tpu/train.py:286-320``): the global
-    shuffle, then one step per batch; with L2 on, the mid-epoch rescale
-    guard after every step (``locked_regularize``, template:678-691) and a
-    fold at the end (template:779-781, 910-912).  No host sync per step."""
+                  batch_size: int, mesh=None, shuffle: str = "global") -> ModelState:
+    """One generic epoch (``lightfm_tpu/train.py:258-320``): the shuffle,
+    then one step per batch; with L2 on, the mid-epoch rescale guard after
+    every step (``locked_regularize``, template:678-691) and a fold at the
+    end (template:779-781, 910-912).  No host sync per step.
+
+    Under a ``mesh`` each rank steps over its own columns of every batch
+    with its columns of the draws; the step all-gathers its per-example
+    quantities over the data axis and applies the full batch's update
+    (``losses._apply_pointwise`` / ``_apply_pairwise``), so every replica
+    takes the single-device step.  ``shuffle="local"`` takes each rank's
+    keys from ``draws.perm`` viewed as ``[n_data, n_local]``."""
     from lightfm_tpu_torch.fast_warp import _unpack_batch5
 
-    n_batches = data.packed.shape[1] // batch_size
-    shuffled = _shuffle_global(data.packed, draws.perm, n_batches, batch_size)
+    shuffled, cols = _epoch_batches(data, draws, batch_size, mesh, shuffle)
     step = LOSS_STEPS[hp.loss]
     lazy_reg = _lazy_reg(hp)
-    for b in range(n_batches):
+    for b in range(shuffled.shape[0]):
         batch = _unpack_batch5(shuffled[b])
         state = step(state, batch, data.user_feats, data.item_feats, data.positives,
-                     data.train_items, hp, _step_draws(draws, b, batch, data.positives, hp))
+                     data.train_items, hp,
+                     _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh)
         if lazy_reg:
             state = maybe_fold_scales(state)
     if lazy_reg:
@@ -271,31 +348,33 @@ def _no_op(hp: Hyperparams) -> bool:
     return hp.max_sampled == 0 and hp.loss in ("warp", "warp-kos")
 
 
-def _epoch(state, data, seed: int, hp, batch_size, fast):
+def _epoch(state, data, seed: int, hp, batch_size, fast, mesh=None, shuffle="global"):
     gen = torch.Generator(device=data.packed.device).manual_seed(int(seed))
     if not fast:
-        return generic_epoch(state, data, draw_generic_epoch(gen, data, hp, batch_size), hp,
-                             batch_size)
+        draws = draw_generic_epoch(gen, data, hp, batch_size, mesh)
+        return generic_epoch(state, data, draws, hp, batch_size, mesh, shuffle)
     from lightfm_tpu_torch import fast_warp
 
     draws = fast_warp.draw_epoch(gen, data, hp, batch_size)
-    return fast_warp.fast_epoch(state, data, draws, hp, batch_size)
+    return fast_warp.fast_epoch(state, data, draws, hp, batch_size, mesh=mesh)
 
 
 def run_epochs(state: ModelState, data: TrainData, seeds, hp: Hyperparams,
-               batch_size: int, fast=False) -> ModelState:
+               batch_size: int, fast=False, mesh=None, shuffle: str = "global") -> ModelState:
     """One epoch per seed in ``seeds`` (uint32 values, one per epoch from
     the model's RandomState).  Returns a new state; the caller's tensors
-    are left as they were (both paths update a copy in place)."""
+    are left as they were (both paths update a copy in place).  Under a
+    ``mesh`` every rank must pass the same seeds (``LightFM.fit`` takes
+    rank 0's) and equal states."""
     if _no_op(hp) or len(seeds) == 0:
         return state
     state = ModelState(*(x.clone() for x in state))
     for seed in seeds:
-        state = _epoch(state, data, int(seed), hp, batch_size, fast)
+        state = _epoch(state, data, int(seed), hp, batch_size, fast, mesh, shuffle)
     return state
 
 
 def run_epoch(state: ModelState, data: TrainData, seed: int, hp: Hyperparams,
-              batch_size: int, fast=False) -> ModelState:
+              batch_size: int, fast=False, mesh=None, shuffle: str = "global") -> ModelState:
     """One epoch seeded by ``seed`` (the verbose per-epoch fit loop)."""
-    return run_epochs(state, data, [seed], hp, batch_size, fast)
+    return run_epochs(state, data, [seed], hp, batch_size, fast, mesh, shuffle)

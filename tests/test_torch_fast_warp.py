@@ -30,6 +30,7 @@ from lightfm_tpu.state import ModelState as JaxState
 import lightfm_tpu_torch
 from lightfm_tpu_torch import config, fast_warp as fw, interop, train
 from lightfm_tpu_torch.evaluation import auc_score
+from lightfm_tpu_torch.parallel import make_mesh
 from lightfm_tpu_torch.sparse import identity_rows
 from lightfm_tpu_torch.state import table_width
 
@@ -366,7 +367,10 @@ def test_eligibility_gate(planted, monkeypatch):
         # package's does.
         _assert_generic_like_jax(planted, **kw)
     hp = config.Hyperparams(**base)
-    assert not fw.fast_warp_eligible(hp, data, object(), "global", bs)  # a mesh
+    with pytest.raises(TypeError):  # a mesh is a lightfm_tpu_torch.parallel.Mesh
+        fw.fast_warp_eligible(hp, data, object(), "global", bs)
+    assert not fw.fast_warp_eligible(hp, data, make_mesh(device="cpu"), "global", bs,
+                                     table_partition="rows")
     assert not fw.fast_warp_eligible(hp, data, None, "local", bs)
     assert not fw.fast_warp_eligible(hp, data, None, "global", 3 * fw.POOL_SIZE // 2)
     # "auto" engages on CUDA devices only.
@@ -409,7 +413,8 @@ def _assert_generic_like_jax(data, item_features=None, **kw):
 
 def test_out_of_slice_configurations_raise(planted):
     """Configurations the fast path turns down train on the generic path;
-    only a mesh still raises (ROADMAP.md item 7)."""
+    only a mesh's row and component partitions raise (ROADMAP.md item 7b),
+    and a mesh that is not a ``Mesh`` raises ``TypeError``."""
     def tags(density):
         return sp.hstack([sp.identity(8000, dtype=np.float32, format="csr"),
                           sp.random(8000, 50, density=density, format="csr",
@@ -419,7 +424,9 @@ def test_out_of_slice_configurations_raise(planted):
     # rows wider than MAX_FAST_FEAT_NNZ on the generic path.
     _assert_generic_like_jax(planted, item_features=tags(0.05), loss="logistic")
     _assert_generic_like_jax(planted, item_features=tags(0.5))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        _tm(mesh=make_mesh(device="cpu"), table_partition="rows").fit(planted, epochs=1)
+    with pytest.raises(TypeError):
         _tm(mesh=object()).fit(planted, epochs=1)
 
 

@@ -30,6 +30,7 @@ from lightfm_tpu.state import ModelState as JaxState
 import lightfm_tpu_torch
 from lightfm_tpu_torch import config, interop, train
 from lightfm_tpu_torch.evaluation import auc_score, precision_at_k
+from lightfm_tpu_torch.parallel import make_mesh
 from lightfm_tpu_torch.sparse import identity_rows, pad_csr
 from lightfm_tpu_torch.state import table_width
 
@@ -355,7 +356,9 @@ def test_midfit_checkpoint_validation(planted, tmp_path):
         m.fit(planted, epochs=2, checkpoint_every_n_epochs=1)
     with pytest.raises(ValueError, match="must be >= 1"):
         m.fit(planted, epochs=2, checkpoint_every_n_epochs=0, checkpoint_path=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        _tm(mesh=make_mesh(device="cpu"), table_partition="components").fit(planted, epochs=1)
+    with pytest.raises(TypeError):
         _tm(mesh=object()).fit(planted, epochs=1)
 
 

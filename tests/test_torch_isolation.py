@@ -48,6 +48,7 @@ def test_import_without_jax_loads_no_lightfm_tpu_module():
         "from lightfm_tpu_torch import fast_warp, train, losses, observability\n"
         "from lightfm_tpu_torch import data, cross_validation, native, datasets\n"
         "from lightfm_tpu_torch.datasets import _common, movielens, stackexchange, synthetic\n"
+        "from lightfm_tpu_torch.parallel import mesh, ingest\n"
         "print(json.dumps(sorted(m for m, mod in sys.modules.items() if mod is not None"
         " and m.split('.')[0] in ('jax', 'jaxlib', 'lightfm_tpu'))))\n"
     )

@@ -178,12 +178,22 @@ def test_recommend_streaming_matches_dense(models, monkeypatch):
 
 
 def test_recommend_rejects_a_mesh():
-    m = lightfm_tpu_torch.LightFM(device="cpu", mesh=object())
-    m._state = interop.state_from_numpy(
+    """A mesh's row partition (ROADMAP.md item 7b) raises, and so does a
+    mesh that is not a ``lightfm_tpu_torch.parallel.Mesh``."""
+    from lightfm_tpu_torch.parallel import make_mesh
+
+    state = interop.state_from_numpy(
         {n: np.zeros((4, 8) if "scale" not in n else (), np.float32)
          for n in JaxModelState._fields}, "cpu",
     )
-    with pytest.raises(NotImplementedError):
+    m = lightfm_tpu_torch.LightFM(device="cpu", mesh=make_mesh(device="cpu"),
+                                  table_partition="rows")
+    m._state = state
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        m.recommend([0], k=2)
+    m = lightfm_tpu_torch.LightFM(device="cpu", mesh=object())
+    m._state = state
+    with pytest.raises(TypeError):
         m.recommend([0], k=2)
 
 
