@@ -51,7 +51,17 @@ with bitwise-equal replicas, one step within the CPU tests' bound of the
 one-device step and the train-sample AUC within 0.005 of the one-device
 fit's, then at the quickstart size one generic epoch against one device,
 an example-sharded fit with the local shuffle and ``recommend`` over a
-(1, 2) mesh.  One card shows correctness only: gloo moves every collective
+(1, 2) mesh.  Phase 11 splits the tables over the model axis, again in
+child processes: two gloo ranks on a (1, 2) mesh train one generic epoch
+at the ``synth-5m-warp-d64`` widths (depth cut to 4 steps) with the tables
+split (a) by rows and (b) by components, each rank holding half of each
+table; the assembled state is held against the one-device fit of the same
+data and seed, and ``predict_rank`` (through K2 and ``pair_scores`` on the
+assembled state) and ``recommend`` against the one-device model's; then
+(c) four gloo ranks on a (2, 2) mesh train the quickstart size by rows with
+example-sharded input and the local shuffle, checkpointing every 10
+epochs, and the last checkpoint loads in this process as the assembled
+state.  One card shows correctness only: gloo moves every collective
 through the host.  Any failed check raises, so the exit code is non-zero;
 the last stdout line is the device record, the line before it the
 per-kernel record.
@@ -2359,7 +2369,7 @@ def _within(torch, got, want, rtol: float, atol: float):
     return inside / total, worst
 
 
-def _mesh_fit(torch, model, mesh, coo, epochs: int):
+def _mesh_fit(torch, model, mesh, coo, epochs: int, **fit_kw):
     """``model.fit`` over ``mesh`` with the launch counts from 0 and CUDA
     events around each epoch; the collectives' host-clock time and bytes
     per step."""
@@ -2369,7 +2379,7 @@ def _mesh_fit(torch, model, mesh, coo, epochs: int):
     mesh.reset_stats()
     with spans.patch([(train, "_epoch", "epoch")]):
         torch.cuda.synchronize()
-        _, launches = counted_all(model.fit, coo, epochs=epochs)
+        _, launches = counted_all(model.fit, coo, epochs=epochs, **fit_kw)
     torch.cuda.synchronize()
     steps = model._staged_train_data.packed.shape[1] * (
         mesh.shape["data"] if model._staged_train_data.examples_sharded else 1
@@ -2383,7 +2393,7 @@ def _mesh_fit(torch, model, mesh, coo, epochs: int):
     }
 
 
-def mesh_nccl_rank(torch, seed: int, rank: int) -> dict:
+def mesh_nccl_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     """(a) One NCCL rank, ``make_mesh(n_data=1)``: the data-parallel fast
     path at the 5M shape through K1, bitwise the fit without a mesh;
     ``recommend`` through ``top_k_sharded`` against ``top_k``."""
@@ -2416,7 +2426,7 @@ def mesh_nccl_rank(torch, seed: int, rank: int) -> dict:
     return out
 
 
-def mesh_gloo_rank(torch, seed: int, rank: int) -> dict:
+def mesh_gloo_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     """(b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=2)``: the 5M
     fit of 3 epochs (a rank's slice 65,536 examples, 4 pools), replicas
     bitwise equal, one step within the CPU tests' bound of the one-device
@@ -2509,8 +2519,8 @@ def mesh_gloo_rank(torch, seed: int, rank: int) -> dict:
 
 
 def mesh_rank_main(torch, args) -> int:
-    """A child of phase 10: join the process group, run this rank's part,
-    write its record, leave the group."""
+    """A child of phase 10 or 11: join the process group, run this rank's
+    part, write its record, leave the group."""
     import torch.distributed as dist
 
     from lightfm_tpu_torch.parallel import initialize_multihost
@@ -2518,8 +2528,9 @@ def mesh_rank_main(torch, args) -> int:
     initialize_multihost(backend=args.mesh_rank, init_method=f"tcp://localhost:{args.port}",
                          world_size=args.world, rank=args.rank, timeout_s=MESH_PG_TIMEOUT_S)
     try:
-        part = mesh_nccl_rank if args.mesh_rank == "nccl" else mesh_gloo_rank
-        out = part(torch, args.seed, args.rank)
+        part = {"mesh": mesh_nccl_rank if args.mesh_rank == "nccl" else mesh_gloo_rank,
+                "split": split_rank, "split22": split22_rank}[args.part]
+        out = part(torch, args.seed, args.rank, args.out)
         with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
             json.dump(out, f)
     finally:
@@ -2527,12 +2538,13 @@ def mesh_rank_main(torch, args) -> int:
     return 0
 
 
-def run_ranks(backend: str, world: int, seed: int, out_dir: str) -> list:
-    """Start ``world`` ranks of this script as children, wait for them with
-    a deadline (killing all of them past it), log their output, and return
-    their records; a child that fails fails the phase."""
+def run_ranks(backend: str, world: int, seed: int, out_dir: str, part: str = "mesh") -> list:
+    """Start ``world`` ranks of this script as children running ``part``
+    (``mesh``: phase 10's; ``split``, ``split22``: phase 11's), wait for
+    them with a deadline (killing all of them past it), log their output,
+    and return their records; a child that fails fails the phase."""
     cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--mesh-rank", backend,
-           "--world", str(world), "--port", str(_free_port()), "--out", out_dir]
+           "--world", str(world), "--port", str(_free_port()), "--out", out_dir, "--part", part]
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=os.path.dirname(os.path.abspath(__file__)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -2545,12 +2557,12 @@ def run_ranks(backend: str, world: int, seed: int, out_dir: str) -> list:
         for p in procs:
             p.kill()
             p.communicate()
-        raise AssertionError(f"phase 10 ({backend}): a rank outlived {MESH_CHILD_TIMEOUT_S} s")
+        raise AssertionError(f"{part} ({backend}): a rank outlived {MESH_CHILD_TIMEOUT_S} s")
     for r, text in enumerate(logs):
         for line in text.splitlines():
-            log(f"    [{backend} rank {r}] {line}")
+            log(f"    [{part} {backend} rank {r}] {line}")
     check(all(p.returncode == 0 for p in procs),
-          f"{backend}: {world} rank(s) exited 0 ({[p.returncode for p in procs]})")
+          f"{part} {backend}: {world} rank(s) exited 0 ({[p.returncode for p in procs]})")
     outs = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2616,6 +2628,274 @@ def mesh_path(torch, seed: int) -> dict:
     }
 
 
+# Phase 11: row and component table partitions, in child processes as phase
+# 10.  (a), (b): two gloo ranks sharing cuda:0, a (1, 2) mesh at
+# synth-5m-warp-d64's widths; (c) four gloo ranks, a (2, 2) mesh at the
+# quickstart size.  One card shows correctness and bytes, not NVLink speed.
+SPLIT_STEPS = 4  # depth cut: one epoch of 4 x TRAIN_BATCH interactions
+SPLIT_RANK_USERS = 2048
+SPLIT_CKPT_EVERY = 10
+
+
+def split_interactions(seed: int):
+    """``SPLIT_STEPS`` batches of phase 5's clustered set, drawn from it at
+    random (its COO is sorted by user, so its first entries would touch
+    only the first tenth of the user table)."""
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    keep = np.sort(np.random.RandomState(seed).choice(coo.nnz, SPLIT_STEPS * TRAIN_BATCH,
+                                                      replace=False))
+    return sp.coo_matrix((coo.data[keep], (coo.row[keep], coo.col[keep])), shape=coo.shape)
+
+
+def _state_bytes(state) -> int:
+    return sum(x.numel() * x.element_size() for x in state)
+
+
+def _fit_peaks(torch, fit, *args, **kwargs):
+    """``fit(*args, **kwargs)`` and the card's peak bytes above what the
+    process held before it: up to the first epoch (initial state, its
+    placement, the staged data) and over the epochs."""
+    from lightfm_tpu_torch import train
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    peaks, real = {}, train.run_epochs
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        peaks["placed"] = torch.cuda.max_memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        return real(*a, **kw)
+
+    train.run_epochs = run
+    try:
+        out = fit(*args, **kwargs)
+    finally:
+        train.run_epochs = real
+    torch.cuda.synchronize()
+    peaks["fit"] = torch.cuda.max_memory_allocated() - held
+    return out, peaks
+
+
+def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
+    """(a), (b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=1,
+    n_model=2)``: one generic epoch at full width with the tables split by
+    rows, then by components; each rank holds half of each table, the
+    assembled state is the one-device ``fast_path="off"`` fit's (bitwise
+    expected), ``predict_rank`` for 2,048 users goes through K2 and
+    ``pair_scores`` on the assembled state and equals the one-device
+    model's, and ``recommend`` over the mesh returns the ids of a
+    replicated-table model on the same mesh with the same state.  Logs each
+    rank's peak bytes on the card while placing, fitting and serving."""
+    import pickle
+
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.state import ModelState, table_width
+
+    mesh = _card_mesh(torch, rank, n_data=1, n_model=2)
+    coo = split_interactions(seed)
+    csr = coo.tocsr()
+    users = np.random.RandomState(seed + 1).choice(TRAIN_USERS, SPLIT_RANK_USERS, replace=False)
+    keep = np.zeros(TRAIN_USERS, np.float32)
+    keep[users] = 1.0
+    test = sp.diags(keep).dot(csr).tocsr()
+    test.eliminate_zeros()
+    rec_users = np.arange(0, TRAIN_USERS, TRAIN_USERS // MESH_REC_USERS)
+
+    def model(**kw):
+        return LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed,
+                       **kw)
+
+    one = None
+    out = {}
+    if rank == 0:
+        one, out["one_peaks"] = _fit_peaks(torch, model(fast_path="off").fit, coo, epochs=1)
+        one_ranks = one.predict_rank(test, check_intersections=False).data
+        one_s, one_rec = one.recommend(rec_users, k=10)
+        one_host = ModelState(*(x.cpu() for x in one._state))
+    W = table_width(D)
+    for partition, item_part, user_part in (
+        ("rows", (TRAIN_ITEMS // 2, W), (TRAIN_USERS // 2, W)),
+        ("components", (TRAIN_ITEMS, W // 2), (TRAIN_USERS, W // 2)),
+    ):
+        m = model(mesh=mesh, table_partition=partition)
+        rec, peaks = _fit_peaks(torch, _mesh_fit, torch, m, mesh, coo, 1)
+        rec["peaks"] = peaks
+        check(m._staged_fast is False, f"{partition}: the split fit took the generic path")
+        check((tuple(m._state.item_table.shape), tuple(m._state.user_table.shape))
+              == (item_part, user_part),
+              f"{partition}: rank {rank} holds item {item_part} and user {user_part}")
+        rec["state_bytes"] = _state_bytes(m._state)
+        whole = m._whole_state()  # on the host
+        rec["whole_bytes"] = _state_bytes(whole)
+        rec["digests"] = _digests(whole)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ranks, launches = counted_all(m.predict_rank, test, check_intersections=False)
+        torch.cuda.synchronize()
+        rec["predict_rank_s"] = time.perf_counter() - t0
+        rec["peaks"]["serve"] = torch.cuda.max_memory_allocated() - held
+        rec["predict_rank_launches"] = {k: launches[k] for k in ("rank_counts", "pair_scores")}
+        check(launches["rank_counts"] > 0 and launches["pair_scores"] > 0,
+              f"{partition}: predict_rank on the split model launched K2 "
+              f"{launches['rank_counts']} and pair_scores {launches['pair_scores']} times")
+        scores, ids = m.recommend(rec_users, k=10)
+        # The same state with replicated tables on the same mesh: both serve
+        # through top_k_sharded, so the split tables must change nothing.
+        rep = pickle.loads(pickle.dumps(m))
+        rep.mesh = mesh
+        rep_s, rep_ids = rep.recommend(rec_users, k=10)
+        check(np.array_equal(ids, rep_ids) and np.array_equal(scores, rep_s),
+              f"{partition}: recommend on the split model is bitwise that of the "
+              "replicated-table model on the same mesh")
+        del rep
+        if rank == 0:
+            share, worst = _within(torch, whole, one_host, MESH_STEP_RTOL, MESH_STEP_ATOL)
+            bitwise = all(torch.equal(a, b) for a, b in zip(whole, one_host))
+            check(share == 1.0, f"{partition}: the assembled state within {MESH_STEP_ATOL:g} + "
+                  f"{MESH_STEP_RTOL:g}|x| of the one-device fit (max |d| {worst:.3g}, bitwise "
+                  f"{bitwise})")
+            rec.update(max_abs_err=worst, bitwise=bitwise)
+            check(np.array_equal(ranks.data, one_ranks),
+                  f"{partition}: predict_rank for {SPLIT_RANK_USERS} users equals the one-device "
+                  f"model's ({ranks.nnz} ranks)")
+            # The mesh scores each half of the catalog in its own product, the
+            # one-device model the whole: cuBLAS may pick kernels that sum
+            # the 73 terms in another order, so near-ties may swap.  The
+            # mesh's ids must be a top 10 by the one-device model's scores.
+            own = one.predict(np.repeat(rec_users, 10), ids.ravel()).reshape(ids.shape)
+            err = max(float(np.abs(scores - one_s).max()), float(np.abs(own - one_s).max()))
+            same = float((ids == one_rec).all(axis=1).mean())
+            check(err <= 1e-5 + 1e-5 * float(np.abs(one_s).max()),
+                  f"{partition}: recommend over the mesh returns a top 10 of the one-device "
+                  f"model (max |d| of scores {err:.3g}; ids identical for {same:.4f} of "
+                  f"{len(rec_users)} users)")
+            rec.update(rec_max_abs_err=err, rec_same_ids=same)
+        out[partition] = rec
+        del m, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def split22_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
+    """(c) Four gloo ranks sharing cuda:0, ``make_mesh(n_data=2,
+    n_model=2)``, at the quickstart size: rows, example-sharded input, the
+    local shuffle, FIT_EPOCHS epochs with a checkpoint every
+    SPLIT_CKPT_EVERY; the 943-row user table warns and stays whole, the
+    item table splits 841 / 841, the fit trains."""
+    import warnings
+
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.state import table_width
+
+    mesh = _card_mesh(torch, rank, n_data=2, n_model=2)
+    qs = planted_ml100k(seed)
+    m = LightFM(loss="warp", no_components=FIT_D, random_state=seed, mesh=mesh,
+                table_partition="rows", shard_examples=True, example_shuffle="local")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = _mesh_fit(torch, m, mesh, qs.tocoo(), FIT_EPOCHS,
+                        checkpoint_every_n_epochs=SPLIT_CKPT_EVERY,
+                        checkpoint_path=os.path.join(out_dir, "quickstart.npz"))
+    said = [str(w.message) for w in caught if "rows is not divisible" in str(w.message)]
+    check(len(said) == 1 and f"table with {FIT_USERS} rows" in said[0],
+          f"the {FIT_USERS}-row user table warns once: {said}")
+    W = table_width(FIT_D)
+    check((tuple(m._state.item_table.shape), tuple(m._state.user_table.shape))
+          == ((FIT_ITEMS // 2, W), (FIT_USERS, W)),
+          f"rank {rank} holds {FIT_ITEMS // 2} item rows and the whole user table")
+    whole = m._whole_state()  # on the host
+    auc, p5 = fit_quality(whole.user_table, whole.item_table, qs)
+    check(auc > QS_AUC_FLOOR, f"train AUC {auc:.4f} > {QS_AUC_FLOOR} (p@5 {p5:.4f})")
+    out.update(auc=auc, p5=p5, digests=_digests(whole), state_bytes=_state_bytes(m._state))
+    return out
+
+
+def _card_mesh(torch, rank: int, n_data: int, n_model: int):
+    from lightfm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=n_data, n_model=n_model)
+    check(mesh.device == torch.device("cuda", 0), f"rank {rank} sits on {mesh.device}")
+    return mesh
+
+
+def split_path(torch, seed: int) -> dict:
+    """Phase 11: row and component table partitions over ``torch.distributed``,
+    in child processes.  Returns each rank's K2 and ``pair_scores`` launch
+    counts of its ``predict_rank`` on a split model."""
+    import hashlib
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 11: split tables. (a) rows, (b) components on a (1, 2) mesh of two gloo ranks "
+        f"sharing cuda:0, {TRAIN_USERS} users x {TRAIN_ITEMS} items, D={D}, batch {TRAIN_BATCH}, "
+        f"{SPLIT_STEPS} steps; (c) rows on a (2, 2) mesh of four, the quickstart size")
+    card = nvidia_smi("name,power.limit")
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("ab", "c"):
+            os.makedirs(os.path.join(tmp, sub))
+        t0 = time.perf_counter()
+        ab = run_ranks("gloo", 2, seed, os.path.join(tmp, "ab"), part="split")
+        secs_ab = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = run_ranks("gloo", 4, seed, os.path.join(tmp, "c"), part="split22")
+        secs_c = time.perf_counter() - t0
+        # The file's state arrays as they are: load_model, as the JAX
+        # package's, refuses a locally shuffled model's file without a mesh.
+        with np.load(os.path.join(tmp, "c", "quickstart.npz")) as z:
+            saved = {n: hashlib.sha256(z[f"state_{n}"].tobytes()).hexdigest()
+                     for n in c[0]["digests"]}
+        check(saved == c[0]["digests"], "(c) the last checkpoint holds the assembled state")
+    for r, rec in enumerate(ab):
+        for partition in ("rows", "components"):
+            x = rec[partition]
+            log(f"  ({'a' if partition == 'rows' else 'b'}) {partition}, gloo rank {r} ({card}; "
+                f"gloo moves every collective through the host over loopback): epoch ms (CUDA "
+                f"events) {json.dumps(x['epoch_ms'])}; collectives "
+                f"{x['collective_ms_per_step']:.3f} ms a step (host clock), "
+                f"{x['collective_calls_per_step']:.1f} calls, {x['bytes_per_step'] / 1e6:.3f} MB "
+                f"sent a step; state {x['state_bytes'] / 1e6:.3f} MB on the rank of "
+                f"{x['whole_bytes'] / 1e6:.3f} MB whole; peak MB above the rank's prior "
+                f"allocation: placing {x['peaks']['placed'] / 1e6:.3f}, fitting "
+                f"{x['peaks']['fit'] / 1e6:.3f}, serving {x['peaks']['serve'] / 1e6:.3f}; "
+                f"predict_rank {x['predict_rank_s'] * 1e3:.1f} ms (host clock, assembly "
+                f"included), launches {json.dumps(x['predict_rank_launches'])}")
+    one_peaks = ab[0]["one_peaks"]
+    log(f"  one device, no mesh ({card}): peak MB placing {one_peaks['placed'] / 1e6:.3f}, "
+        f"fitting {one_peaks['fit'] / 1e6:.3f}")
+    for r, rec in enumerate(ab):
+        for partition in ("rows", "components"):
+            x = rec[partition]
+            check(x["peaks"]["placed"] < x["whole_bytes"],
+                  f"{partition}, rank {r}: the card never held the whole state while it was "
+                  f"drawn and placed ({x['peaks']['placed'] / 1e6:.3f} < "
+                  f"{x['whole_bytes'] / 1e6:.3f} MB)")
+            check(x["peaks"]["fit"] < one_peaks["fit"],
+                  f"{partition}, rank {r}: the split fit's peak is below the one-device fit's "
+                  f"({x['peaks']['fit'] / 1e6:.3f} < {one_peaks['fit'] / 1e6:.3f} MB)")
+    for r, rec in enumerate(c):
+        log(f"  (c) gloo rank {r} ({card}): {FIT_EPOCHS} epochs, median "
+            f"{float(np.median(rec['epoch_ms'])):.3f} ms (CUDA events), collectives "
+            f"{rec['collective_ms_per_step']:.3f} ms a step (host clock), "
+            f"{rec['collective_calls_per_step']:.1f} calls, {rec['bytes_per_step'] / 1e6:.4f} MB "
+            f"sent a step; state {rec['state_bytes'] / 1e6:.4f} MB on the rank; AUC "
+            f"{rec['auc']:.4f}")
+    for partition in ("rows", "components"):
+        check(ab[0][partition]["digests"] == ab[1][partition]["digests"],
+              f"(a, b) {partition}: the two ranks' assembled states are bitwise equal")
+    check(all(rec["digests"] == c[0]["digests"] for rec in c),
+          "(c) the four ranks' assembled states are bitwise equal")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 11: {secs:.1f} s ((a, b) {secs_ab:.1f}, (c) {secs_c:.1f}, child start-up "
+        "included)")
+    return {f"split gloo rank {r} {partition} predict_rank": rec[partition]["predict_rank_launches"]
+            for r, rec in enumerate(ab) for partition in ("rows", "components")}
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2625,6 +2905,8 @@ def main() -> int:
     p.add_argument("--world", type=int, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, help=argparse.SUPPRESS)
     p.add_argument("--out", help=argparse.SUPPRESS)
+    p.add_argument("--part", default="mesh", choices=("mesh", "split", "split22"),
+                   help=argparse.SUPPRESS)
     args = p.parse_args()
 
     import torch
@@ -2665,6 +2947,13 @@ def main() -> int:
     mesh_launches = mesh_path(torch, args.seed)
     log("  kernel launches by path, phase 10 (each counted from 0 in its rank): "
         + json.dumps(mesh_launches))
+    split_launches = split_path(torch, args.seed)
+    log("  kernel launches by path, phase 11 (each counted from 0 in its rank): "
+        + json.dumps(split_launches))
+    for rec in kernels:
+        rec["launches_split"] = {k: v[rec["name"]] for k, v in split_launches.items()}
+        check(all(v > 0 for v in rec["launches_split"].values()),
+              f"{rec['name']} launched on every rank's split predict_rank")
     check(all(v["sorted_adagrad_update"] > 0 for k, v in mesh_launches.items() if "fit warp" in k),
           "sorted_adagrad_update launched on every rank's mesh fit")
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]

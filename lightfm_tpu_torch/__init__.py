@@ -5,11 +5,11 @@ on one device, on the fast path through hand-written Hopper kernels where
 it is eligible and on the plain-PyTorch generic path otherwise) and
 serves them (``predict``, ``predict_rank`` and the evaluation metrics,
 ``recommend``) on an NVIDIA GPU; it imports neither ``jax`` nor
-``lightfm_tpu``.  Over a ``torch.distributed`` mesh of replicated tables
-(:mod:`lightfm_tpu_torch.parallel`) it trains data-parallel and serves
-``recommend`` with the catalog split over the model axis; row and component
-partitions are not ported yet (ROADMAP.md item 7b).  Checkpoints interchange with ``lightfm_tpu``
-(:func:`save_model`, :func:`load_model`).
+``lightfm_tpu``.  Over a ``torch.distributed`` mesh
+(:mod:`lightfm_tpu_torch.parallel`) it trains data-parallel, with tables
+replicated or split over the model axis by rows or by components, and
+serves ``recommend`` with the catalog split over that axis.  Checkpoints
+interchange with ``lightfm_tpu`` (:func:`save_model`, :func:`load_model`).
 
 The host side comes with it: :mod:`lightfm_tpu_torch.data` (``Dataset``:
 external ids to interaction, weight and feature matrices, on the native

@@ -22,8 +22,17 @@ _STATE_FIELDS = ModelState._fields
 
 
 def save_model(model, path: str) -> None:
-    """Serialize a LightFM model to ``path`` (.npz)."""
+    """Serialize a LightFM model to ``path`` (.npz).
+
+    A model whose tables are split over a mesh's model axis is assembled
+    on the host first, a collective: every rank of the mesh calls
+    ``save_model``, and rank 0 alone writes the file.
+    """
     model._sync_mirrors()  # fold pending in-place edits of state views
+    state = None if model._state is None else model._whole_state()
+    split = model._placement is not None and model._placement.sharded
+    if split and model._placement.mesh.rank != 0:
+        return
     header = {
         "format_version": FORMAT_VERSION,
         "params": {
@@ -51,10 +60,13 @@ def save_model(model, path: str) -> None:
     arrays["_rng_keys"] = rs[1]
     arrays["_rng_meta"] = np.array([rs[2], rs[3], rs[4]], dtype=np.float64)
 
-    if model._state is not None:
-        for name, a in state_to_numpy(model._state).items():
+    if state is not None:
+        for name, a in state_to_numpy(state).items():
             arrays[f"state_{name}"] = a
+    _write(path, arrays)
 
+
+def _write(path: str, arrays: dict) -> None:
     with open(path, "wb") as f:
         np.savez(f, **arrays)
 

@@ -3,8 +3,11 @@ batches + sorted adagrad updates, with identity features or, for WARP and
 BPR, narrow feature matrices (the hybrid path).
 
 Counterpart of ``lightfm_tpu/fast_warp.py``, on one device or
-data-parallel over a mesh of replicated tables (below; row and component
-partitions are ROADMAP.md item 7b).  Per step:
+data-parallel over a mesh of replicated tables (below).  As in the JAX
+package (``lightfm_tpu/fast_warp.py:239-251``), :func:`fast_warp_eligible`
+turns down every other table partition: a mesh fit with
+``table_partition="rows"`` or ``"components"`` trains on the generic path
+(:mod:`lightfm_tpu_torch.train`).  Per step:
 
 - **Pool negatives** (WARP, BPR): one pool of ``P`` item ids and ``K``
   rotations; candidate k of example b is pool slot ``(b + shift_k) mod P``,

@@ -32,7 +32,11 @@ Under a device mesh (``mesh``) a step gets this rank's columns of the
 batch and of the draws; it computes their representations and losses,
 all-gathers them over the data axis and applies the whole batch's update
 on every rank, the single-device update (``lightfm_tpu/train.py:276-283``,
-where GSPMD does the same).
+where GSPMD does the same).  Under a row or component partition
+(``placement``, a :class:`~lightfm_tpu_torch.parallel.mesh.Placement`)
+every table read gathers the whole rows over the model axis, and each rank
+applies the touches of the rows or columns it holds; the lazy-L2
+statistics of those touches are summed over the model axis in rank order.
 
 The fast path's steps live in :mod:`lightfm_tpu_torch.fast_warp`.
 """
@@ -56,6 +60,17 @@ class Batch(NamedTuple):
     y: torch.Tensor  # f32 [B]
     weight: torch.Tensor  # f32 [B]
     valid: torch.Tensor  # bool [B]
+
+
+def _side(placement, side: str):
+    """One side's ``TablePlacement`` of a ``Placement`` (None: whole tables)."""
+    return None if placement is None else getattr(placement, side)
+
+
+def _own(placement, idx, mask, g):
+    """The touches of the part of a table this rank holds:
+    ``placement.own``, or all of them without a placement."""
+    return (idx, mask, g, {}) if placement is None else placement.own(idx, mask, g)
 
 
 def _lazy_reg(hp: Hyperparams) -> bool:
@@ -127,14 +142,15 @@ def _update_scales(state: ModelState, hp: Hyperparams, sum_lr, n_touch, n_update
     )
 
 
-def _overflow_chunks(table, acc, mom, feats: ChunkedRows, specs, alpha, kw):
+def _overflow_chunks(table, acc, mom, feats: ChunkedRows, specs, alpha, kw, placement=None):
     """Apply the over-width feature tail of :class:`ChunkedRows` touches.
 
     ``specs`` is a list of ``(slots [B], g [B, W], mask [B], first [B])``
     sharing ``feats`` (``first``: each entity's first base-tier feature).
     The chunks apply one after another, each reading the accumulator the
     previous one left, so the working set stays ``[touches, chunk width]``
-    however wide the heaviest row is.
+    however wide the heaviest row is.  ``placement``: the table's, as for
+    :func:`_apply_touches`.
     """
     slots = torch.cat([s[0] for s in specs]).long()
     g = torch.cat([s[1] for s in specs])
@@ -149,17 +165,43 @@ def _overflow_chunks(table, acc, mom, feats: ChunkedRows, specs, alpha, kw):
         idx = _off_row_zero(idx, tmask, first)
         C = idx.shape[1]
         g_flat = g[:, None, :].expand(T, C, g.shape[1]).reshape(T * C, -1)
+        idx, tmask, g_flat, own_kw = _own(placement, idx.reshape(-1), tmask.reshape(-1), g_flat)
         table, acc, mom, lr, n = sparse_update(
-            table, acc, mom, idx.reshape(-1), w.reshape(-1), g_flat, tmask.reshape(-1),
-            alpha=alpha, **kw,
+            table, acc, mom, idx, w.reshape(-1), g_flat, tmask, alpha=alpha, **kw, **own_kw,
         )
         if lr is not None:
             sum_lr, cnt = (lr, n) if sum_lr is None else (sum_lr + lr, cnt + n)
     return table, acc, mom, sum_lr, cnt
 
 
-def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, upd_mask):
-    """One sparse optimizer pass per table (plus chunked overflow tails)."""
+def _apply_touches(state, side, feats, touches, over, alpha, kw, placement):
+    """One table's sparse optimizer pass (plus its chunked overflow tail)
+    on the part this rank holds under ``placement`` (its
+    ``TablePlacement``; None: the whole table).  Returns the state and the
+    lazy-L2 statistics of the touches applied here."""
+    idx, w, g, mask = touches
+    idx, mask, g, own_kw = _own(placement, idx, mask, g)
+    table, acc, mom, lr, cnt = sparse_update(
+        getattr(state, f"{side}_table"), getattr(state, f"{side}_acc"),
+        getattr(state, f"{side}_mom"), idx, w, g, mask, alpha=alpha, **kw, **own_kw,
+    )
+    if over:
+        table, acc, mom, lr_o, cnt_o = _overflow_chunks(
+            table, acc, mom, feats, over, alpha, kw, placement
+        )
+        if lr is not None:
+            lr, cnt = lr + lr_o, cnt + cnt_o
+    state = state._replace(**{f"{side}_table": table, f"{side}_acc": acc, f"{side}_mom": mom})
+    return state, (lr, cnt)
+
+
+def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, upd_mask,
+                 placement=None):
+    """One sparse optimizer pass per table (plus chunked overflow tails).
+    Under a sharded ``placement`` a side's statistics come from the touches
+    this rank applied and are summed over the model axis in rank order, so
+    every rank bumps the same scales; a replicated side's are every
+    touch's already, on every rank, and are not summed."""
     lazy = _lazy_reg(hp)
     kw = dict(
         adadelta=hp.adadelta,
@@ -171,37 +213,24 @@ def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, 
         need_stats=lazy,
     )
     flat = [t[0] for t in item_touches]
-    i_idx, i_w, i_g, i_m = (
-        flat[0] if len(flat) == 1 else [torch.cat(parts) for parts in zip(*flat)]
-    )
-    table, acc, mom, lr_i, cnt_i = sparse_update(
-        state.item_table, state.item_acc, state.item_mom,
-        i_idx, i_w, i_g, i_m, alpha=hp.item_alpha, **kw,
-    )
+    item_flat = flat[0] if len(flat) == 1 else [torch.cat(parts) for parts in zip(*flat)]
     item_over = [t[1] for t in item_touches if t[1] is not None]
-    if item_over:
-        table, acc, mom, lr_o, cnt_o = _overflow_chunks(
-            table, acc, mom, item_feats, item_over, hp.item_alpha, kw
-        )
-        if lazy:
-            lr_i, cnt_i = lr_i + lr_o, cnt_i + cnt_o
-    state = state._replace(item_table=table, item_acc=acc, item_mom=mom)
-
-    (u_idx, u_w, u_g, u_m), user_over = user_touches
-    table, acc, mom, lr_u, cnt_u = sparse_update(
-        state.user_table, state.user_acc, state.user_mom,
-        u_idx, u_w, u_g, u_m, alpha=hp.user_alpha, **kw,
-    )
-    if user_over is not None:
-        table, acc, mom, lr_o, cnt_o = _overflow_chunks(
-            table, acc, mom, user_feats, [user_over], hp.user_alpha, kw
-        )
-        if lazy:
-            lr_u, cnt_u = lr_u + lr_o, cnt_u + cnt_o
-    state = state._replace(user_table=table, user_acc=acc, user_mom=mom)
-
+    user_flat, user_over = user_touches
+    stats = {}
+    state, stats["item"] = _apply_touches(state, "item", item_feats, item_flat, item_over,
+                                          hp.item_alpha, kw, _side(placement, "item"))
+    state, stats["user"] = _apply_touches(state, "user", user_feats, user_flat,
+                                          [user_over] if user_over is not None else [],
+                                          hp.user_alpha, kw, _side(placement, "user"))
     if not lazy:
         return state
+    split = [s for s in stats if _side(placement, s) is not None and _side(placement, s).sharded]
+    if split:
+        from lightfm_tpu_torch.parallel.mesh import sum_over_model
+
+        summed = sum_over_model(placement.mesh, *[x for s in split for x in stats[s]])
+        stats.update({s: summed[2 * k:2 * k + 2] for k, s in enumerate(split)})
+    (lr_i, cnt_i), (lr_u, cnt_u) = stats["item"], stats["user"]
     n_updates = torch.sum(upd_mask.to(torch.float32))
     return _update_scales(state, hp, lr_i + lr_u, cnt_i + cnt_u, n_updates)
 
@@ -218,22 +247,23 @@ def _gather_examples(mesh, *per_example):
 
 
 def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, loss, upd,
-                     mesh=None):
+                     mesh=None, placement=None):
     """Gradient step of the logistic loss (``update``, template:454-534):
     item grad = loss * user row, user grad = loss * item row, 1 in the bias
     slot (so ``loss * with_unit_bias(rep)`` is the fused gradient).  Under
     a ``mesh`` the arguments are this rank's slice of the batch; the update
-    is the whole batch's."""
+    is the whole batch's, on the part of each table this rank holds under
+    ``placement``."""
     uid, iid, u_rep, i_rep, loss, upd = _gather_examples(mesh, uid, iid, u_rep, i_rep, loss, upd)
     g_item = loss[:, None] * with_unit_bias(u_rep)
     g_user = loss[:, None] * with_unit_bias(i_rep)
     item_t = _flatten_touches(item_feats, iid, g_item, upd)
     user_t = _flatten_touches(user_feats, uid, g_user, upd)
-    return _run_updates(state, hp, item_feats, [item_t], user_feats, user_t, upd)
+    return _run_updates(state, hp, item_feats, [item_t], user_feats, user_t, upd, placement)
 
 
 def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
-                    u_rep, p_rep, n_rep, loss, upd, mesh=None):
+                    u_rep, p_rep, n_rep, loss, upd, mesh=None, placement=None):
     """Gradient step of the ranking losses (``warp_update``,
     template:537-649): positive item -loss * user, negative item +loss *
     user, user loss * (neg - pos); the bias column likewise with 1.  Under
@@ -245,7 +275,8 @@ def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
     neg_t = _flatten_touches(item_feats, neg_iid, lu, upd)
     g_user = loss[:, None] * with_unit_bias(n_rep - p_rep)
     user_t = _flatten_touches(user_feats, uid, g_user, upd)
-    return _run_updates(state, hp, item_feats, [pos_t, neg_t], user_feats, user_t, upd)
+    return _run_updates(state, hp, item_feats, [pos_t, neg_t], user_feats, user_t, upd,
+                        placement)
 
 
 # ---------------------------------------------------------------------------
@@ -254,17 +285,20 @@ def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
 
 
 def logistic_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-                  train_items, hp: Hyperparams, draws=None, mesh=None) -> ModelState:
+                  train_items, hp: Hyperparams, draws=None, mesh=None,
+                  placement=None) -> ModelState:
     """Batched sigmoid regression step (``fit_logistic``, template:694-781)."""
     u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale)
-    i_rep = batch_representation(state.item_table, item_feats, batch.item_ids, i_scale)
+    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                 _side(placement, "user"))
+    i_rep = batch_representation(state.item_table, item_feats, batch.item_ids, i_scale,
+                                 _side(placement, "item"))
     pred = torch.sigmoid(score_pairs(u_rep, i_rep))
     # Any value <= 0 is a negative interaction (template:751-758).
     y01 = (batch.y > 0).to(torch.float32)
     loss = batch.weight * (pred - y01)
     return _apply_pointwise(state, hp, user_feats, item_feats, batch.user_ids,
-                            batch.item_ids, u_rep, i_rep, loss, batch.valid, mesh)
+                            batch.item_ids, u_rep, i_rep, loss, batch.valid, mesh, placement)
 
 
 def _score_candidates(u_rep: torch.Tensor, reps_flat: torch.Tensor, K: int) -> torch.Tensor:
@@ -301,7 +335,8 @@ def _rank_weight(j: torch.Tensor, n_items: int) -> torch.Tensor:
     return torch.log(torch.clamp(torch.floor((n_items - 1) / sampled), min=1.0))
 
 
-def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, neg_ids, hp):
+def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, neg_ids, hp,
+                          placement=None):
     """Score the ``[K, B]`` negative draws at once and select each row's
     first margin violator that is not a positive (template:855-899): a
     violating positive consumes a trial without an update, so it is masked
@@ -309,7 +344,8 @@ def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, ne
     B = uid.shape[0]
     K = neg_ids.shape[0]
     nf_flat = batch_representation(
-        state.item_table, item_feats, neg_ids.reshape(-1), _scales(state, hp)[1]
+        state.item_table, item_feats, neg_ids.reshape(-1), _scales(state, hp)[1],
+        _side(placement, "item"),
     )  # [K*B, W] slot-major
     neg_pred = _score_candidates(u_rep, nf_flat, K)
     violates = neg_pred > pos_pred[None, :] - 1.0
@@ -321,19 +357,22 @@ def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, ne
 
 
 def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-              train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None) -> ModelState:
+              train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None,
+              placement=None) -> ModelState:
     """Batched WARP step (``fit_warp``, template:784-912).  ``draws``: the
     ``[K, B]`` negative item ids.  The positive rides the negatives' gather
     as slot 0 of ``[K+1, B]``."""
     upd_base = batch.valid & (batch.y > 0)  # template:831
     u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale)
+    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                 _side(placement, "user"))
 
     B = batch.user_ids.shape[0]
     K = draws.shape[0]
     neg_ids = draws.to(batch.item_ids.dtype)
     all_ids = torch.cat([batch.item_ids[None, :], neg_ids], dim=0)
-    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale)
+    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale,
+                                     _side(placement, "item"))
     preds = _score_candidates(u_rep, reps_flat, K + 1)
     pos_pred, neg_pred = preds[0], preds[1:]
     p_rep = reps_flat[:B]
@@ -348,11 +387,12 @@ def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives
 
     loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
-                           neg_id, u_rep, p_rep, n_rep, loss, upd_base & found, mesh)
+                           neg_id, u_rep, p_rep, n_rep, loss, upd_base & found, mesh, placement)
 
 
 def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-             train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None) -> ModelState:
+             train_items, hp: Hyperparams, draws: torch.Tensor, mesh=None,
+             placement=None) -> ModelState:
     """Batched BPR step (``fit_bpr``, template:1074-1182).  ``draws``: the
     ``[B, T]`` positions into ``train_items``; negatives come from the
     empirical item distribution (template:1123-1127), rejecting the user's
@@ -365,15 +405,17 @@ def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
     neg_id = torch.gather(cand, 1, j[:, None])[:, 0]
 
     u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale)
+    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                 _side(placement, "user"))
     B = batch.user_ids.shape[0]
     all_ids = torch.cat([batch.item_ids[None, :], neg_id[None, :].to(batch.item_ids.dtype)], dim=0)
-    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale)
+    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale,
+                                     _side(placement, "item"))
     preds = _score_candidates(u_rep, reps_flat, 2)
     p_rep, n_rep = reps_flat[:B], reps_flat[B:]
     loss = batch.weight * (1.0 - torch.sigmoid(preds[0] - preds[1]))  # template:1158
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
-                           neg_id, u_rep, p_rep, n_rep, loss, upd, mesh)
+                           neg_id, u_rep, p_rep, n_rep, loss, upd, mesh, placement)
 
 
 def kos_slots(u: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -385,7 +427,7 @@ def kos_slots(u: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
-                  train_items, hp: Hyperparams, draws, mesh=None) -> ModelState:
+                  train_items, hp: Hyperparams, draws, mesh=None, placement=None) -> ModelState:
     """Batched k-OS WARP step (``fit_warp_kos``, template:915-1071).
     ``draws``: ``(slots [n, B], neg_ids [K, B])``, each slot in ``[0,
     max(#positives, 1))`` of its row.  Samples min(n, #positives) of the
@@ -401,13 +443,15 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
     upd_base = batch.valid & (lens > 0)  # template:972-973
 
     u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, uid, u_scale)
+    u_rep = batch_representation(state.user_table, user_feats, uid, u_scale,
+                                 _side(placement, "user"))
 
     user_rows = positives.idx[uid_l]  # [B, P] sorted positives
     ar = torch.arange(B, device=uid.device)
     cand = user_rows[ar[None, :], slots.long()]  # [n, B]
     cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # clamp the sentinel of empty rows
-    pc_flat = batch_representation(state.item_table, item_feats, cand.reshape(-1), i_scale)
+    pc_flat = batch_representation(state.item_table, item_feats, cand.reshape(-1), i_scale,
+                                   _side(placement, "item"))
     scores = _score_candidates(u_rep, pc_flat, n_draw)  # [n, B]
 
     no_pos = torch.clamp(lens, max=hp.n)  # template:976
@@ -422,11 +466,12 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
     p_rep = _pick_flat(pc_flat, sel, B)
 
     neg_id, n_rep, found, rank_weight = _warp_negative_search(
-        state, item_feats, positives, uid, u_rep, pos_pred, neg_ids.to(uid.dtype), hp
+        state, item_feats, positives, uid, u_rep, pos_pred, neg_ids.to(uid.dtype), hp, placement
     )
     loss = torch.clamp(rank_weight, max=MAX_LOSS)  # template:1039-1043 (no weight)
     return _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_id, neg_id,
-                           u_rep, p_rep, n_rep, loss, upd_base & found, mesh)
+                           u_rep, p_rep, n_rep, loss, upd_base & found, mesh,
+                           placement)
 
 
 LOSS_STEPS = {

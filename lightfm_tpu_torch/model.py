@@ -7,8 +7,9 @@ twelve reference state arrays as numpy views that user code may edit in
 place.  ``fit`` trains every single-device configuration of the JAX
 package, on the fast path where it is eligible and on the generic path
 otherwise (see :meth:`LightFM.fit_partial`), with optional mid-fit
-checkpoints, and data-parallel over a ``mesh`` of replicated tables; a
-model can also take its state from a checkpoint
+checkpoints, and over a ``mesh`` (data-parallel, with tables replicated or
+split by rows or components over its model axis); a model can also take
+its state from a checkpoint
 (:func:`lightfm_tpu_torch.load_model`, which reads files the JAX package
 writes) or from :mod:`lightfm_tpu_torch.interop`.
 
@@ -159,8 +160,8 @@ class LightFM:
         self.user_pallas = user_pallas
         self.fast_precision = fast_precision
         self.shuffle_mode = shuffle_mode
-        # A lightfm_tpu_torch.parallel.Mesh: data-parallel training over
-        # replicated tables, and recommend() through top_k_sharded.
+        # A lightfm_tpu_torch.parallel.Mesh: data-parallel training, tables
+        # placed by table_partition, and recommend() through top_k_sharded.
         self.mesh = mesh
         self.table_partition = table_partition
         self.shard_examples = shard_examples
@@ -188,6 +189,7 @@ class LightFM:
             self._state = ModelState(*(x.to(self._device) for x in self._state))
         self._drop_mirrors()
         self._serving_cache = {}
+        self._assembled = None
 
     # ------------------------------------------------------------------
     # State plumbing
@@ -195,6 +197,11 @@ class LightFM:
 
     def _reset_state(self):
         self._state: ModelState | None = None
+        # Where a mesh fit placed the state (parallel.mesh.Placement; None:
+        # whole tensors), and under a row or component partition the whole
+        # state assembled for serving (dropped whenever the state changes).
+        self._placement = None
+        self._assembled = None
         # recommend()'s catalog / compressed index and the identity-keyed
         # host prep of the input matrices.
         self._serving_cache: dict = {}
@@ -273,9 +280,18 @@ class LightFM:
         return np.ones_like(interactions.data, dtype=CYTHON_DTYPE)
 
     def _check_finite(self):
-        for parameter in (self._state.item_table, self._state.user_table):
-            if not torch.isfinite(parameter.sum()).item():
-                raise ValueError(
+        """Raise when a table's sum is not finite.  Under a row or component
+        partition each rank sums its own part and the flags are summed over
+        the model axis, so every rank raises or none does."""
+        bad = sum(~torch.isfinite(t.sum()) for t in (self._state.item_table,
+                                                   self._state.user_table)).float()
+        p = self._placement
+        if p is not None and p.sharded:
+            from lightfm_tpu_torch.parallel.mesh import sum_over_model
+
+            (bad,) = sum_over_model(p.mesh, bad)
+        if bad.item():
+            raise ValueError(
                     "Not all estimated parameters are finite,"
                     " your model may have diverged. Try decreasing"
                     " the learning rate or normalising feature values"
@@ -368,11 +384,19 @@ class LightFM:
         advances as without a mesh), and each rank computes its slice of
         every batch, then applies the whole batch's update, so the replicas
         stay bitwise equal: on the fast path where it is eligible
-        (replicated examples, identity features), else on the generic path,
-        with ``shard_examples`` and ``example_shuffle="local"``.  Only
-        ``table_partition="rows"`` and ``"components"`` (or an ``"auto"``
-        that resolves to rows) raise ``NotImplementedError`` (ROADMAP.md
-        item 7b).  Checkpoints are written by rank 0 alone.
+        (replicated tables and examples, identity features), else on the
+        generic path, with ``shard_examples`` and ``example_shuffle="local"``.
+        ``table_partition="rows"`` or ``"components"`` (or an ``"auto"``
+        that resolves to rows) splits the tables over the model axis
+        (:func:`lightfm_tpu_torch.parallel.mesh.plan_placement`) and trains
+        on the generic path: each step gathers the rows it reads and each
+        rank updates the part it holds; no card holds the whole state,
+        which stays split after the fit.  The state attributes, the
+        representations, pickling and checkpoints then read the whole
+        state assembled on the host, and ``predict``, ``predict_rank`` and
+        the metrics and ``recommend`` the two whole tables assembled on the
+        card: these are collectives that every rank of the mesh calls.
+        Checkpoints are written by rank 0 alone.
 
         ``checkpoint_every_n_epochs``/``checkpoint_path``: when set, the
         model is saved atomically (``save_model`` to a temp file, then
@@ -392,7 +416,7 @@ class LightFM:
         mesh = self.mesh
         if mesh is not None:
             from lightfm_tpu_torch.parallel.mesh import (
-                check_mesh, check_partition, shard_state, shard_train_data)
+                check_mesh, place_state, plan_placement, shard_train_data)
 
             check_mesh(mesh)
             own, rank_dev = self._device, mesh.device
@@ -405,7 +429,7 @@ class LightFM:
                 self.device = rank_dev
         from lightfm_tpu_torch.fast_warp import apply_env_overrides, fast_warp_eligible
         from lightfm_tpu_torch.observability import FitStats
-        from lightfm_tpu_torch.state import init_state
+        from lightfm_tpu_torch.state import init_state, table_width
         from lightfm_tpu_torch.train import (
             build_train_data,
             choose_batch_size,
@@ -415,6 +439,7 @@ class LightFM:
 
         # Fold pending in-place edits of handed-out state views first.
         self._sync_mirrors()
+        self._assembled = None
         interactions = interactions.tocoo()
         if interactions.dtype != CYTHON_DTYPE:
             interactions.data = interactions.data.astype(CYTHON_DTYPE)
@@ -435,9 +460,9 @@ class LightFM:
             self._check_input_finite(input_data)
 
         if self._state is not None:
-            if not item_features.shape[1] == self._state.item_table.shape[0]:
+            if not item_features.shape[1] == self._table_shape("item")[0]:
                 raise ValueError("Incorrect number of features in item_features")
-            if not user_features.shape[1] == self._state.user_table.shape[0]:
+            if not user_features.shape[1] == self._table_shape("user")[0]:
                 raise ValueError("Incorrect number of features in user_features")
         if num_threads < 1:
             raise ValueError("Number of threads must be 1 or larger.")
@@ -455,7 +480,12 @@ class LightFM:
             batch_size,
             self._device,
         )
+        W = table_width(self.no_components)
+        shapes = ((item_features.shape[1], W), (user_features.shape[1], W))
+        table_partition = self._resolve_table_partition(shapes)
+        placement = None if mesh is None else plan_placement(mesh, table_partition, *shapes)
         if self._state is None:
+            # Under a mesh every rank draws rank 0's tables and keeps its part.
             self._state = init_state(
                 self.no_components,
                 item_features.shape[1],
@@ -463,11 +493,15 @@ class LightFM:
                 self.random_state,
                 adagrad=(self.learning_schedule == "adagrad"),
                 device=self._device,
+                **({} if mesh is None else dict(share_seed=self._rank0_seed,
+                                                part=placement.part)),
             )
-        table_partition = self._resolve_table_partition()
+        elif mesh is not None:
+            self._state = place_state(self._state, placement, self._placement)
+        elif self._placement is not None:  # a mesh fit before this one
+            self._state = ModelState(*(x.to(self._device) for x in self._whole_state()))
+        self._placement = placement
         if mesh is not None:
-            check_partition(table_partition)
-            self._state = shard_state(self._state, mesh, table_partition)
             data = shard_train_data(data, mesh, self.shard_examples)
         fast = fast_warp_eligible(hp, data, mesh, self.example_shuffle, batch_size,
                                   table_partition=table_partition,
@@ -512,7 +546,8 @@ class LightFM:
             seeds = self.random_state.randint(0, np.iinfo(np.int32).max, size=n).astype(np.uint32)
             if mesh is not None:
                 seeds = self._rank0_seeds(seeds)
-            epoch_kw = dict(fast=fast, mesh=mesh, shuffle=self.example_shuffle)
+            epoch_kw = dict(fast=fast, mesh=mesh, shuffle=self.example_shuffle,
+                            placement=self._placement)
             if verbose:
                 # Epoch by epoch, so progress and finite checks track epochs.
                 for seed in seeds:
@@ -523,6 +558,7 @@ class LightFM:
             else:
                 self._state = run_epochs(self._state, data, seeds, hp, batch_size, **epoch_kw)
                 self._check_finite()
+            self._assembled = None
             done += n
             if checkpoint_every_n_epochs is not None:
                 self._save_checkpoint(checkpoint_path)
@@ -541,18 +577,26 @@ class LightFM:
         t = torch.from_numpy(seeds.astype(np.int64)).to(self.mesh.device)
         return broadcast_from_rank0(self.mesh, t)[0].cpu().numpy().astype(np.uint32)
 
-    def _resolve_table_partition(self):
+    def _rank0_seed(self, seed: int) -> int:
+        """Rank 0's initialisation seed on every rank of the mesh."""
+        return int(self._rank0_seeds(np.array([seed]))[0])
+
+    def _resolve_table_partition(self, shapes=None):
         """Resolve ``table_partition="auto"`` at fit time
-        (``lightfm_tpu/model.py:434-486``): replicated while the state
-        (tables and optimizer accumulators) fits the per-device budget, else
-        rows (ROADMAP.md item 7b, which raises).
+        (``lightfm_tpu/model.py:434-486``): replicated while the whole state
+        (tables and optimizer accumulators, however it is placed now) fits
+        the per-device budget, else rows.  ``shapes``: the whole
+        ``(rows, width)`` of the item and user tables (by default the
+        state's).
 
         Budget: ``LIGHTFM_TPU_REPLICATED_TABLE_BUDGET`` (bytes) when set,
         else half the CUDA device's memory, else 4 GiB.
         """
         if self.table_partition != "auto":
             return self.table_partition
-        if self.mesh is None or self._state is None:
+        if shapes is None and self._state is not None:
+            shapes = (self._table_shape("item"), self._table_shape("user"))
+        if self.mesh is None or shapes is None:
             return "replicated"
         raw = os.environ.get("LIGHTFM_TPU_REPLICATED_TABLE_BUDGET")
         if raw:
@@ -561,7 +605,8 @@ class LightFM:
             budget = torch.cuda.mem_get_info(self._device)[1] // 2
         else:
             budget = 4 << 30
-        state_bytes = sum(x.numel() * x.element_size() for x in self._state)
+        # f32 throughout: table, acc and mom of each side, and two scalars.
+        state_bytes = 4 * (3 * sum(r * w for r, w in shapes) + 2)
         if state_bytes <= budget:
             return "replicated"
         if self.mesh.shape["model"] <= 1:
@@ -581,12 +626,16 @@ class LightFM:
         """Atomic mid-fit checkpoint: write to a temp file, then rename, so
         a kill during the write never leaves a truncated checkpoint.  Under
         a mesh rank 0 writes it (the replicas are equal) and every rank
-        waits until it is there."""
+        waits until it is there.  A split state is assembled on the host
+        first, a collective: every rank calls ``save_model``, which writes
+        on rank 0 alone."""
         from lightfm_tpu_torch.checkpoint import save_model
 
-        if self.mesh is None or self.mesh.rank == 0:
-            tmp = f"{path}.tmp"
+        writer = self.mesh is None or self.mesh.rank == 0
+        tmp = f"{path}.tmp"
+        if writer or self._split():
             save_model(self, tmp)
+        if writer:
             os.replace(tmp, path)
         if self.mesh is not None:
             from lightfm_tpu_torch.parallel.mesh import barrier
@@ -600,10 +649,61 @@ class LightFM:
             )
         self._sync_mirrors()
 
+    def _table_shape(self, side: str) -> tuple:
+        """The whole ``(rows, width)`` of a side's table, however placed."""
+        from lightfm_tpu_torch.parallel.mesh import whole_shape
+
+        name = f"{side}_table"
+        return whole_shape(name, getattr(self._state, name), self._placement)
+
+    def _split(self) -> bool:
+        return self._placement is not None and self._placement.sharded
+
+    def _whole_field(self, attr: str) -> torch.Tensor:
+        """One whole state field: the tensor itself, or under a row or
+        component partition its parts assembled on the host (a collective:
+        every rank of the mesh calls it)."""
+        if not self._split():
+            return getattr(self._state, attr)
+        from lightfm_tpu_torch.parallel.mesh import assemble
+
+        return assemble(self._state, self._placement, (attr,), device="cpu")[attr]
+
+    def _whole_state(self) -> ModelState:
+        """The whole state: ``_state`` itself, or under a row or component
+        partition its parts assembled on the host (a collective: every rank
+        of the mesh calls it), for checkpoints and pickles."""
+        if not self._split():
+            return self._state
+        from lightfm_tpu_torch.parallel.mesh import assemble_state
+
+        return assemble_state(self._state, self._placement, device="cpu")
+
+    def _serving_state(self) -> ModelState:
+        """The state that serving reads: ``_state`` itself, or under a row
+        or component partition the two whole tables assembled on the card
+        (a collective: every rank of the mesh calls it), kept until the
+        state changes.  The optimizer fields stay this rank's parts, which
+        serving never reads."""
+        if not self._split():
+            return self._state
+        if self._assembled is None:
+            from lightfm_tpu_torch.parallel.mesh import assemble
+
+            self._assembled = self._state._replace(
+                **assemble(self._state, self._placement, ("item_table", "user_table")))
+        return self._assembled
+
+    def _put_whole(self, attr: str, whole: torch.Tensor):
+        """Replace a state field by a whole tensor: this rank keeps its part."""
+        part = whole if self._placement is None else self._placement.part(attr, whole)
+        self._state = self._state._replace(**{attr: part.to(self._device)})
+        self._assembled = None
+
     def _mirror(self, attr):
         m = self._host_mirrors.get(attr)
         if m is None:
-            m = getattr(self._state, attr).detach().cpu().numpy().copy()
+            m = self._whole_field(attr).detach().cpu().numpy().copy()
             self._host_mirrors[attr] = m
             self._mirror_snaps[attr] = m.copy()
         return m
@@ -621,15 +721,15 @@ class LightFM:
         for attr, m in mirrors.items():
             if np.array_equal(m, self._mirror_snaps[attr]):
                 continue
-            self._state = self._state._replace(
-                **{attr: torch.tensor(m, device=self._device)}
-            )
+            self._put_whole(attr, torch.from_numpy(m.copy()))
             self._mirror_snaps[attr] = m.copy()
             self._drop_state_dependent_cache()  # representations changed
 
     def _drop_state_dependent_cache(self):
         """Drop serving-cache entries derived from MODEL STATE (catalog,
-        compressed index), keeping the identity-keyed host prep."""
+        compressed index) and the assembled state, keeping the
+        identity-keyed host prep."""
+        self._assembled = None
         self._serving_cache = {
             k: v
             for k, v in self._serving_cache.items()
@@ -653,13 +753,13 @@ class LightFM:
         # not discard edits made through another field's view.
         self._sync_mirrors()
         attr, kind = _FIELD_MAP[name]
-        table = getattr(self._state, attr).clone()
-        value = torch.tensor(np.asarray(value, dtype=np.float32), device=self._device)
+        table = self._whole_field(attr).clone()
+        value = torch.tensor(np.asarray(value, dtype=np.float32), device=table.device)
         if kind == "emb":
             table[:, : self.no_components] = value
         else:
             table[:, -1] = value
-        self._state = self._state._replace(**{attr: table})
+        self._put_whole(attr, table)
         self._host_mirrors.pop(attr, None)
         self._mirror_snaps.pop(attr, None)
         self._serving_cache = {}
@@ -689,20 +789,21 @@ class LightFM:
             )
 
         if self._state is not None:
-            if not self._state.user_table.shape[0] >= user_features.shape[1]:
+            n_user_rows, n_item_rows = self._table_shape("user")[0], self._table_shape("item")[0]
+            if not n_user_rows >= user_features.shape[1]:
                 raise ValueError(
                     "The user feature matrix specifies more "
                     "features than there are estimated "
                     "feature embeddings: {} vs {}.".format(
-                        self._state.user_table.shape[0], user_features.shape[1]
+                        n_user_rows, user_features.shape[1]
                     )
                 )
-            if not self._state.item_table.shape[0] >= item_features.shape[1]:
+            if not n_item_rows >= item_features.shape[1]:
                 raise ValueError(
                     "The item feature matrix specifies more "
                     "features than there are estimated "
                     "feature embeddings: {} vs {}.".format(
-                        self._state.item_table.shape[0], item_features.shape[1]
+                        n_item_rows, item_features.shape[1]
                     )
                 )
 
@@ -923,7 +1024,7 @@ class LightFM:
         )
 
         scores = _predict_pairs(
-            self._state,
+            self._serving_state(),
             self._pad_features_cached(user_features),
             self._pad_features_cached(item_features),
             torch.from_numpy(user_ids).to(self._device),
@@ -972,9 +1073,9 @@ class LightFM:
             n_users, n_items, user_features, item_features
         )
 
-        if not item_features.shape[1] == self._state.item_table.shape[0]:
+        if not item_features.shape[1] == self._table_shape("item")[0]:
             raise ValueError("Incorrect number of features in item_features")
-        if not user_features.shape[1] == self._state.user_table.shape[0]:
+        if not user_features.shape[1] == self._table_shape("user")[0]:
             raise ValueError("Incorrect number of features in user_features")
 
         # Identity-keyed memoization keeps the converted CSRs stable across
@@ -995,7 +1096,7 @@ class LightFM:
             )
 
         ranks_data = predict_ranks_padded(
-            self._state,
+            self._serving_state(),
             self._pad_features_cached(user_features),
             self._pad_features_cached(item_features),
             test_interactions,
@@ -1035,10 +1136,10 @@ class LightFM:
         from lightfm_tpu_torch import retrieval
 
         if self.mesh is not None:
-            from lightfm_tpu_torch.parallel.mesh import check_mesh, check_partition
+            from lightfm_tpu_torch.parallel.mesh import check_mesh
 
             check_mesh(self.mesh)
-            check_partition(self._resolve_table_partition())
+        state = self._serving_state()
         user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
         if n_items is None:
             if item_features is not None:
@@ -1048,7 +1149,7 @@ class LightFM:
             elif getattr(self, "n_items_", None) is not None:
                 n_items = self.n_items_
             else:
-                n_items = self._state.item_table.shape[0]
+                n_items = state.item_table.shape[0]
         if item_features is None and getattr(self, "_item_features_used", False):
             raise ValueError(
                 "This model was fitted with item_features; recommend() needs "
@@ -1092,16 +1193,16 @@ class LightFM:
         if mode == "compressed":
             index = self._serving_cache.get(("index", n_items)) if cacheable else None
             if index is None:
-                index = retrieval.build_compressed_index(self._state, item_feats, n_items)
+                index = retrieval.build_compressed_index(state, item_feats, n_items)
                 if cacheable:
                     self._serving_cache[("index", n_items)] = index
             scores, ids = retrieval.top_k_compressed(
-                self._state, user_feats, index, uid, k,
+                state, user_feats, index, uid, k,
                 exclude_idx=exclude_idx, rerank_mult=rerank_mult,
             )
         elif mode in ("auto", "exact", "approx") and self.mesh is not None:
             scores, ids = retrieval.top_k_sharded(
-                self._state, user_feats, item_feats, uid, k, n_items, self.mesh,
+                state, user_feats, item_feats, uid, k, n_items, self.mesh,
                 exclude_idx=exclude_idx,
             )
         elif mode in ("auto", "exact", "approx"):
@@ -1112,11 +1213,11 @@ class LightFM:
                     131_072 if n_items > retrieval.STREAMING_CATALOG_LIMIT else 128
                 )
                 catalog = retrieval.build_catalog(
-                    self._state, item_feats, n_items, multiple=multiple
+                    state, item_feats, n_items, multiple=multiple
                 )
                 self._serving_cache[("catalog", n_items)] = catalog
             scores, ids = retrieval.top_k(
-                self._state, user_feats, item_feats, uid, k, n_items,
+                state, user_feats, item_feats, uid, k, n_items,
                 exclude_idx=exclude_idx, catalog=catalog,
             )
         else:
@@ -1196,16 +1297,18 @@ class LightFM:
 
     def __getstate__(self):
         self._sync_mirrors()  # pickle what the user sees, edits included
+        state = None if self._state is None else self._whole_state()  # every rank calls it
         d = dict(self.__dict__)
         d.pop("_host_mirrors", None)
         d.pop("_mirror_snaps", None)
         d.pop("mesh", None)  # device handles are not picklable
+        for name in ("_placement", "_assembled", "_state"):  # the whole state goes below
+            d.pop(name, None)
         d.pop("_serving_cache", None)  # rebuildable device buffers
         # The staged device-resident training set: rebuilt by every fit.
         for name in ("_staged_train_data", "_staged_hp", "_staged_batch_size", "_staged_fast"):
             d.pop(name, None)
         d["_device"] = str(self._device)
-        state = d.pop("_state")
         d["_state_np"] = (
             None if state is None
             else {name: x.cpu().numpy() for name, x in zip(ModelState._fields, state)}
@@ -1216,6 +1319,7 @@ class LightFM:
         state_np = d.pop("_state_np", None)
         self.__dict__.update(d)
         self.mesh = None
+        self._placement = self._assembled = None
         self._device = resolve_device(d["_device"])
         self._serving_cache = {}
         self._drop_mirrors()

@@ -4,6 +4,10 @@ Counterpart of ``lightfm_tpu/ops/representation.py:22-127``.
 Representations are ``[..., W]`` rows whose last element is the summed
 bias (the reference's layout, ``_lightfm_fast.pyx.template:305``); tables
 store that layout directly, so identity features are one row gather.
+
+Every table read goes through :func:`table_rows`, which under a mesh
+asks the table's placement for the whole rows, so everything after it
+computes as over a replicated table.
 """
 
 from __future__ import annotations
@@ -47,31 +51,41 @@ def round_to_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.bfloat16().float()
 
 
+def table_rows(table: torch.Tensor, ids: torch.Tensor, placement=None) -> torch.Tensor:
+    """Whole rows ``ids`` of a table: ``table[ids]``, or the table's
+    ``placement.rows`` (which gathers them over the model axis when the
+    table is split there)."""
+    return table[ids] if placement is None else placement.rows(table, ids)
+
+
 def batch_representation(
     table: torch.Tensor,  # [n_features, W]
     features,
     row_ids: torch.Tensor,  # int [...]
     scale: torch.Tensor | None = None,
+    placement=None,
 ) -> torch.Tensor:
     """Representations for a batch of rows: ``[..., W]`` incl. bias slot.
 
     Identity features (or ``None``) skip the feature walk: the
     representation is the table row.  Padding slots of general features
     have weight 0 and contribute nothing.  ``scale`` is the lazy-
-    regularisation accumulator; ``None`` means exactly 1.
+    regularisation accumulator; ``None`` means exactly 1.  ``placement``:
+    the table's :class:`~lightfm_tpu_torch.parallel.mesh.TablePlacement`
+    (None: the whole table), read through :func:`table_rows`.
     """
     row_ids = row_ids.long()
     if features is None or isinstance(features, IdentityRows):
-        rows = table[row_ids]
+        rows = table_rows(table, row_ids, placement)
         return rows * scale if scale is not None else rows
     if isinstance(features, ChunkedRows):
-        rep = batch_representation(table, features.base, row_ids, scale)
+        rep = batch_representation(table, features.base, row_ids, scale, placement)
         slots = features.over_slot[row_ids].long()
         for idx_c, wts_c in zip(features.over_idx, features.over_wts):
             w = wts_c[slots]  # [..., C]; record M is all zeros (a no-op)
             if scale is not None:
                 w = w * scale
-            emb_c = table[idx_c[slots].long()]  # [..., C, W]
+            emb_c = table_rows(table, idx_c[slots].long(), placement)  # [..., C, W]
             rep = rep + _weighted_sum(w, emb_c)
         return rep
 
@@ -79,7 +93,7 @@ def batch_representation(
     wts = features.wts[row_ids]  # [..., P]
     if scale is not None:
         wts = wts * scale
-    return _weighted_sum(wts, table[idx])
+    return _weighted_sum(wts, table_rows(table, idx, placement))
 
 
 def _weighted_sum(w: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,12 @@ one table at once:
   touch (template:372,387,432,447); the global scale bookkeeping lives in
   :mod:`lightfm_tpu_torch.losses` and :mod:`lightfm_tpu_torch.state`.
 
+Under a row or component partition each rank applies only the touches of
+the part it holds (``parallel.mesh.TablePlacement.own``), after every
+rank has gathered the whole batch's touches: a touch of another rank's
+row becomes a masked touch of a row held here, so each held row sees its
+touches in the single-device order.
+
 The JAX function also has a small-table branch that swaps the scatters for
 one-hot matmuls (``updates.py:89-107``).  It exists only because scatters
 serialize on XLA:TPU; it gives the same sums in another order and returns
@@ -77,6 +83,8 @@ def sparse_update(
     eps: float,
     emb_dim: int | None = None,
     need_stats: bool = True,
+    col_offset: int = 0,
+    full_width: int | None = None,
 ):
     """Apply one batched sparse optimizer step to ``table``, in place.
 
@@ -84,7 +92,9 @@ def sparse_update(
     sum over unmasked (touch, column) pairs, counting only the active
     columns ``[0, emb_dim)`` and the bias column of a width-padded table
     (all columns when ``emb_dim`` is None).  ``need_stats=False`` skips
-    them and returns None for both.
+    them and returns None for both.  A table that holds columns
+    ``[col_offset, col_offset + W)`` of a ``full_width`` table (a
+    component partition) counts its active columns by their global index.
     """
     squeeze = table.dim() == 1
     if squeeze:
@@ -114,13 +124,16 @@ def sparse_update(
         # Lazy regularisation boost; masked touches get factor exactly 1.
         scatter_mul(table, idx, 1.0 + alpha * lr_local * mask_f)
 
+    W_all = W if full_width is None else full_width
     if not need_stats:
         sum_lr = n_touches = None
-    elif emb_dim is not None and emb_dim + 1 < W:
-        cols = torch.arange(W, device=table.device)
-        col_active = ((cols < emb_dim) | (cols == W - 1)).to(table.dtype)
+    elif emb_dim is not None and emb_dim + 1 < W_all:
+        cols = col_offset + torch.arange(W, device=table.device)
+        col_active = ((cols < emb_dim) | (cols == W_all - 1)).to(table.dtype)
         sum_lr = torch.sum(lr_local * mask_f * col_active[None, :])
-        n_touches = torch.sum(mask_f) * (emb_dim + 1)
+        n_active = (max(0, min(emb_dim, col_offset + W) - col_offset)
+                    + int(col_offset <= W_all - 1 < col_offset + W))
+        n_touches = torch.sum(mask_f) * n_active
     else:
         sum_lr = torch.sum(lr_local * mask_f)
         n_touches = torch.sum(mask_f) * W

@@ -13,11 +13,33 @@ applies the same full-batch update.
 - **data axis**: the batch is split over it; :func:`all_gather_rows` and
   :func:`sum_over_data` restore the full batch's update streams.
 - **model axis**: ranks that share a data coordinate compute the same
-  slice; ``retrieval.top_k_sharded`` splits the catalog over it.
+  slice; ``retrieval.top_k_sharded`` splits the catalog over it, and the
+  row and component partitions split the tables over it.
 
-Only replicated tables are ported.  Row and component partitions
-(``table_partition="rows"`` / ``"components"``) raise
-``NotImplementedError``: they are ROADMAP.md item 7b.
+Tables are placed by :func:`shard_state` (the JAX package's
+``_table_spec`` / ``shard_state``), recorded per side as a
+:class:`TablePlacement`:
+
+- ``"replicated"``: every rank holds the whole table;
+- ``"rows"``: rank m of the model axis holds rows ``[m R/n, (m+1) R/n)``
+  of the table, its ``acc`` and its ``mom``; a table whose row count
+  does not divide by ``n`` warns and stays replicated;
+- ``"components"``: rank m holds columns ``[m W/n, (m+1) W/n)`` of every
+  table (``ValueError`` when ``W`` does not divide).
+
+Where GSPMD inserts collectives in the JAX package, a step here runs one
+rule for both sharded layouts: it reassembles the rows its lookups read
+(:meth:`TablePlacement.rows`), computes as over replicated tables, and
+applies only the touches this rank holds (:meth:`TablePlacement.own`);
+the lazy-L2 statistics of the owned touches are summed over the model axis
+in rank order (:func:`sum_over_model`).
+
+No rank ever holds the whole of a split state on its card: a fresh state
+is drawn table by table and cut at once (``state.init_state``'s ``part``),
+a whole state is sent part by part (:func:`place_state`), and the whole
+state is assembled part by part into memory the caller names
+(:func:`assemble`): the host for checkpoints, pickles and the state
+attributes, the card for the two tables that serving reads.
 
 A world of one rank needs no process group: :func:`make_mesh` then builds a
 mesh of one rank whose collectives return their inputs.
@@ -28,7 +50,8 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from typing import Optional
+import warnings
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -101,15 +124,6 @@ def check_mesh(mesh) -> Mesh:
     return mesh
 
 
-def check_partition(table_partition: str) -> None:
-    """Raise for the table partitions that are not ported (ROADMAP.md item 7b)."""
-    if table_partition != "replicated":
-        raise NotImplementedError(
-            f"table_partition={table_partition!r} is not ported yet: row and component "
-            "partitions are ROADMAP.md item 7b; use table_partition='replicated'"
-        )
-
-
 def _rank_device(rank: int, device) -> torch.device:
     """``device`` when given, else this rank's card: ``cuda:LOCAL_RANK``,
     or ``cuda:rank % device_count``.  Without CUDA only ``device="cpu"``
@@ -165,13 +179,14 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
 
 def _as_bytes(tensors, rows: int) -> tuple[torch.Tensor, list]:
     """Pack tensors with ``rows`` leading rows into one ``[rows, bytes]``
-    uint8 block (bool as one byte), so one collective carries them all."""
+    uint8 block (bool as one byte), so one collective carries them all
+    (one tensor: a view of it, no copy)."""
     parts, specs = [], []
     for t in tensors:
         t = t.contiguous()
         parts.append(t.view(torch.uint8).reshape(rows, -1))
         specs.append((t.dtype, tuple(t.shape[1:]), parts[-1].shape[1]))
-    return torch.cat(parts, dim=1), specs
+    return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)), specs
 
 
 def _from_bytes(block: torch.Tensor, specs) -> list:
@@ -191,7 +206,7 @@ def _collective(mesh: Mesh, block: torch.Tensor, op):
     out = op(block)
     mesh.stats["calls"] += 1
     mesh.stats["seconds"] += time.perf_counter() - t0
-    mesh.stats["bytes"] += block.numel()
+    mesh.stats["bytes"] += block.numel() * block.element_size()
     return out
 
 
@@ -216,26 +231,37 @@ def _gather(mesh: Mesh, group, tensors) -> list:
     return _from_bytes(torch.cat(_gather_block(mesh, group, block)), specs)
 
 
+def _data_group(mesh: Mesh):
+    """The data axis' group, or None when it holds this rank alone (a
+    collective over one rank is a copy)."""
+    return mesh.data_group if mesh.shape[DATA_AXIS] > 1 else None
+
+
+def _model_group(mesh: Mesh):
+    """The model axis' group, or None when it holds this rank alone."""
+    return mesh.model_group if mesh.shape[MODEL_AXIS] > 1 else None
+
+
 def all_gather_rows(mesh: Mesh, *tensors: torch.Tensor) -> list:
     """Tiled all-gather along dim 0 over the data axis: rank d's rows land
     at block d, so slices cut in data-axis order come back in batch order."""
-    return _gather(mesh, mesh.data_group, tensors)
+    return _gather(mesh, _data_group(mesh), tensors)
 
 
 def all_gather_model(mesh: Mesh, *tensors: torch.Tensor) -> list:
     """Tiled all-gather along dim 0 over the model axis."""
-    return _gather(mesh, mesh.model_group, tensors)
+    return _gather(mesh, _model_group(mesh), tensors)
 
 
-def sum_over_data(mesh: Mesh, *tensors: torch.Tensor) -> list:
-    """Sum of each tensor over the data axis.  An all-gather, then a sum in
-    rank order (not ``all_reduce``), so the order of the sum is fixed and
-    the same on every rank and backend."""
-    if mesh.data_group is None:
+def _sum_in_rank_order(mesh: Mesh, group, tensors) -> list:
+    """Sum of each tensor over ``group``: an all-gather, then a sum in rank
+    order (not ``all_reduce``), so the order of the sum is fixed and the
+    same on every rank and backend."""
+    if group is None:
         return list(tensors)
     flat = [t.reshape(1, -1) for t in tensors]
     block, specs = _as_bytes(flat, 1)
-    parts = [_from_bytes(b, specs) for b in _gather_block(mesh, mesh.data_group, block)]
+    parts = [_from_bytes(b, specs) for b in _gather_block(mesh, group, block)]
     out = []
     for i, t in enumerate(tensors):
         acc = parts[0][i]
@@ -245,6 +271,80 @@ def sum_over_data(mesh: Mesh, *tensors: torch.Tensor) -> list:
     return out
 
 
+def sum_over_data(mesh: Mesh, *tensors: torch.Tensor) -> list:
+    """Sum of each tensor over the data axis, in rank order."""
+    return _sum_in_rank_order(mesh, _data_group(mesh), tensors)
+
+
+def sum_over_model(mesh: Mesh, *tensors: torch.Tensor) -> list:
+    """Sum of each tensor over the model axis, in rank order."""
+    return _sum_in_rank_order(mesh, _model_group(mesh), tensors)
+
+
+def gather_columns(mesh: Mesh, *tensors: torch.Tensor) -> list:
+    """Tiled all-gather along dim 1 over the model axis: each tensor's
+    columns of every model rank, concatenated in rank order (tensors that
+    share their leading length go as one block)."""
+    group = _model_group(mesh)
+    if group is None:
+        return list(tensors)
+    block, specs = _as_bytes(tensors, tensors[0].shape[0])
+    parts = [_from_bytes(b, specs) for b in _gather_block(mesh, group, block)]
+    return [torch.cat([p[i] for p in parts], dim=1) for i in range(len(tensors))]
+
+
+def _by_distinct(ids: torch.Tensor, width: int, like: torch.Tensor, fetch) -> torch.Tensor:
+    """``[*ids.shape, width]`` rows of ``fetch(distinct ids)``, one row per
+    distinct id (every rank of the model axis passes the same ids, so the
+    empty case is every rank's alike and sends nothing)."""
+    flat = ids.reshape(-1)
+    if flat.numel() == 0:
+        return like.new_zeros((*ids.shape, width))
+    uniq, inv = torch.unique(flat, return_inverse=True)
+    return fetch(uniq)[inv].reshape(*ids.shape, width)
+
+
+def gather_owned_rows(mesh: Mesh, table: torch.Tensor, ids: torch.Tensor, start: int,
+                      stop: int) -> torch.Tensor:
+    """Rows ``ids`` of a table split by rows over the model axis, of which
+    this rank holds rows ``[start, stop)`` as ``table``: ``[*ids.shape, W]``.
+
+    Each rank fills the distinct ids it owns; one all-gather brings every
+    rank's fill, and each row is taken from its owner's copy (not summed
+    with the others' zeros, which would turn a ``-0.0`` into ``+0.0``).
+    The bytes sent are the distinct rows, however often the lookup repeats
+    them.
+    """
+    group = _model_group(mesh)
+    if group is None:
+        return table[ids - start]
+    n_local = stop - start
+
+    def fetch(uniq):
+        owner = uniq // n_local  # the model coordinate that holds each row
+        owned = (uniq >= start) & (uniq < stop)
+        mine = table[torch.where(owned, uniq - start, torch.zeros_like(uniq))]
+        block, specs = _as_bytes([mine], mine.shape[0])
+        fills = [_from_bytes(b, specs)[0] for b in _gather_block(mesh, group, block)]
+        rows = fills[0]  # a fresh buffer: rank 0's fill, then each owner's rows
+        for m in range(1, len(fills)):
+            take = owner == m
+            rows[take] = fills[m][take]
+        return rows
+
+    return _by_distinct(ids, table.shape[1], table, fetch)
+
+
+def gather_row_columns(mesh: Mesh, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of a table split by columns over the model axis
+    (``table`` holds this rank's columns): the local columns of the
+    distinct rows, all-gathered along dim 1."""
+    if _model_group(mesh) is None:
+        return table[ids]
+    width = table.shape[1] * mesh.shape[MODEL_AXIS]
+    return _by_distinct(ids, width, table, lambda uniq: gather_columns(mesh, table[uniq])[0])
+
+
 def broadcast_from_rank0(mesh: Mesh, *tensors: torch.Tensor) -> list:
     """Rank 0's values of ``tensors`` on every rank of the world (each
     rank's own tensors give the shapes and dtypes)."""
@@ -252,13 +352,14 @@ def broadcast_from_rank0(mesh: Mesh, *tensors: torch.Tensor) -> list:
         return list(tensors)
     flat = [t.reshape(1, -1) for t in tensors]
     block, specs = _as_bytes(flat, 1)
-
-    def op(buf):
-        dist.broadcast(buf, src=0)
-        return buf
-
-    block = _collective(mesh, block, op)
+    block = _collective(mesh, block.clone(), lambda buf: _broadcast(buf, 0))
     return [x.reshape(t.shape) for x, t in zip(_from_bytes(block, specs), tensors)]
+
+
+def _broadcast(buf: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``dist.broadcast`` in place from global rank ``src``; ``buf``."""
+    dist.broadcast(buf.reshape(-1), src=src, group=group)
+    return buf
 
 
 def barrier(mesh: Mesh) -> None:
@@ -272,17 +373,236 @@ def barrier(mesh: Mesh) -> None:
 # ---------------------------------------------------------------------------
 
 
-def shard_state(state, mesh: Mesh, table_partition: str = "rows"):
-    """Place model state on the mesh.
+class TablePlacement(NamedTuple):
+    """Where one side's table, with its ``acc`` and ``mom``, lives on this
+    rank: ``layout`` ``"replicated"`` (the whole table), ``"rows"`` (rows
+    ``[start, stop)``) or ``"components"`` (columns ``[start, stop)``);
+    ``shape`` is the whole table's ``(rows, width)``."""
 
-    ``"replicated"``: every tensor moves to the rank's device and takes
-    rank 0's values, so every replica starts from rank 0's tables whatever
-    each rank's ``random_state`` drew.  ``"rows"`` and ``"components"``
-    raise ``NotImplementedError`` (ROADMAP.md item 7b).
+    mesh: Mesh
+    layout: str
+    start: int
+    stop: int
+    shape: tuple
+
+    @property
+    def sharded(self) -> bool:
+        return self.layout != "replicated"
+
+    @property
+    def dim(self) -> int:
+        """The dimension the table is split along."""
+        return 0 if self.layout == "rows" else 1
+
+    def rows(self, table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        """Whole rows ``ids`` of the table whose part here is ``table``
+        (a collective when the table is split: every rank of the model axis
+        passes the same ids)."""
+        if not self.sharded:
+            return table[ids]
+        if self.layout == "rows":
+            return gather_owned_rows(self.mesh, table, ids, self.start, self.stop)
+        return gather_row_columns(self.mesh, table, ids)
+
+    def own(self, idx: torch.Tensor, mask: torch.Tensor, g: torch.Tensor):
+        """The share of a batch's touches (global row ids ``idx``, gradients
+        ``g`` of the whole width) that applies to the part held here, as
+        ``(idx, mask, g, kw)`` for ``ops/updates.sparse_update(..., **kw)``.
+
+        ``"rows"``: the ids become local; a touch of a row held elsewhere
+        points at a local row (its id modulo the local row count, so no
+        one row collects them all) and is masked, an exact no-op.
+        ``"components"``: the gradient's columns held here, counted by
+        their global index in the lazy-L2 statistics."""
+        if self.layout == "rows":
+            idx = idx.long()
+            mine = (idx >= self.start) & (idx < self.stop)
+            local = torch.where(mine, idx - self.start, idx % (self.stop - self.start))
+            return local, mask & mine, g, {}
+        if self.layout == "components":
+            return idx, mask, g[:, self.start:self.stop], dict(col_offset=self.start,
+                                                               full_width=self.shape[1])
+        return idx, mask, g, {}
+
+
+class Placement(NamedTuple):
+    """A state's placement on a mesh: where each side's table went (under
+    ``"rows"`` a table may fall back to replication)."""
+
+    item: TablePlacement
+    user: TablePlacement
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.item.mesh
+
+    @property
+    def sharded(self) -> bool:
+        return self.item.sharded or self.user.sharded
+
+    def side(self, field: str) -> Optional[TablePlacement]:
+        """The placement of a ``ModelState`` field (None for the scales)."""
+        if field.endswith("_log_scale"):
+            return None
+        return self.item if field.startswith("item_") else self.user
+
+    def part(self, field: str, x: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole tensor ``x`` of ``field``."""
+        return local_part(x, self.side(field))
+
+
+PARTITIONS = ("replicated", "rows", "components")
+
+
+def plan_placement(mesh: Mesh, table_partition: str, item_shape, user_shape) -> Placement:
+    """Where ``shard_state`` puts each table (``lightfm_tpu/parallel/mesh.py:
+    68-127``): ``"rows"`` splits the row space over the model axis and
+    replicates, with a warning, a table whose row count does not divide;
+    ``"components"`` splits the columns and raises ``ValueError`` when the
+    fused width does not divide; ``"replicated"`` copies every table."""
+    if table_partition not in PARTITIONS:
+        raise ValueError(f"table_partition must be one of {PARTITIONS}, got {table_partition!r}")
+    n, m = mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS]
+    if table_partition == "components" and item_shape[1] % n:
+        raise ValueError(
+            "'components' table partitioning requires the fused table "
+            f"width (= {item_shape[1]}: embedding columns + zero pad + bias "
+            f"column; see lightfm_tpu_torch.state.table_width) to be divisible "
+            f"by the model-axis size {n}; pick a compatible "
+            "no_components or use 'rows'."
+        )
+    warned: set = set()
+
+    def side(shape) -> TablePlacement:
+        shape = tuple(int(x) for x in shape)
+        rows, width = shape
+        if table_partition == "components":
+            return TablePlacement(mesh, "components", m * width // n, (m + 1) * width // n, shape)
+        if table_partition == "rows" and rows % n == 0:
+            return TablePlacement(mesh, "rows", m * rows // n, (m + 1) * rows // n, shape)
+        if table_partition == "rows" and rows not in warned:
+            warned.add(rows)
+            warnings.warn(
+                f"table with {rows} rows is not divisible by the "
+                f"model axis ({n}); replicating it instead "
+                "of row-sharding",
+                stacklevel=3,
+            )
+        return TablePlacement(mesh, "replicated", 0, rows, shape)
+
+    return Placement(side(item_shape), side(user_shape))
+
+
+def local_part(x: torch.Tensor, side: Optional[TablePlacement]) -> torch.Tensor:
+    """This rank's part of a whole table tensor placed as ``side``, on
+    ``x``'s device: a copy, so the whole tensor can go (the tensor itself
+    when it is all of it)."""
+    if side is None or not side.sharded or side.stop - side.start == x.shape[side.dim]:
+        return x
+    return x.narrow(side.dim, side.start, side.stop - side.start).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _rank0_part(mesh: Mesh, x: torch.Tensor, side: Optional[TablePlacement]) -> torch.Tensor:
+    """This rank's part of rank 0's whole tensor ``x``, on the mesh's
+    device: rank 0 broadcasts the parts one after another, and each rank
+    keeps its own, so a card holds one part beside the rank's."""
+    if not mesh.distributed:
+        return local_part(x, side).to(mesh.device)
+    n = mesh.shape[MODEL_AXIS] if side is not None and side.sharded else 1
+    size = x.shape[side.dim] // n if n > 1 else 0
+    kept = None
+    for m in range(n):
+        piece = x if n == 1 else x.narrow(side.dim, m * size, size)
+        buf = torch.empty(piece.shape, dtype=x.dtype, device=mesh.device)
+        if mesh.rank == 0:
+            buf.copy_(piece)
+        buf = _collective(mesh, buf, lambda b: _broadcast(b, 0))
+        if m == (mesh.coords[MODEL_AXIS] if n > 1 else 0):
+            kept = buf
+    return kept
+
+
+def place_state(state, placement: Placement, current: Optional[Placement] = None):
+    """``state`` placed as ``placement``.  ``current`` is the placement the
+    state has (None: whole tensors on any device, which take rank 0's
+    values, so every replica starts from rank 0's tables whatever each
+    rank's ``random_state`` drew).  A state already placed as asked is
+    returned as it is; a split one placed otherwise is assembled on the
+    host first.  The card never holds a whole split table: each rank
+    receives its part alone."""
+    if current is not None and current == placement:
+        return state
+    mesh, names = placement.mesh, type(state)._fields
+    if current is None:
+        return type(state)(*(_rank0_part(mesh, x, placement.side(name))
+                             for name, x in zip(names, state)))
+    if current.sharded:  # equal on every rank once assembled
+        state = assemble_state(state, current, device="cpu")
+    return type(state)(*(placement.part(name, x).to(mesh.device)
+                         for name, x in zip(names, state)))
+
+
+def shard_state(state, mesh: Mesh, table_partition: str = "rows"):
+    """Place a whole model state on the mesh (``lightfm_tpu/parallel/mesh.py:
+    68-127``).
+
+    ``"replicated"``: every tensor moves to the rank's device.
+    ``"rows"``: each table's row space is split over the model axis (a
+    table whose row count does not divide is replicated, with a warning).
+    ``"components"``: the columns of every table are split over it.
+    The tensors take rank 0's values.  To place a state again, which
+    ``fit_partial`` does, :func:`place_state` takes the placement it has.
     """
-    check_partition(table_partition)
-    placed = [x.to(mesh.device) for x in state]
-    return type(state)(*broadcast_from_rank0(mesh, *placed))
+    return place_state(state, plan_placement(mesh, table_partition, state.item_table.shape,
+                                             state.user_table.shape))
+
+
+def whole_shape(field: str, x: torch.Tensor, placement: Optional[Placement]) -> tuple:
+    """The whole shape of a state field whose tensor here is ``x``."""
+    side = None if placement is None else placement.side(field)
+    return side.shape if side is not None and side.sharded else tuple(x.shape)
+
+
+def assemble(state, placement: Placement, fields, device=None) -> dict:
+    """The whole tensors of ``fields`` of a placed state on ``device`` (the
+    mesh's by default), a collective that every rank of the model axis
+    calls.  Each split tensor is preallocated whole on ``device``, and its
+    parts are broadcast by their owners one after another over the model
+    axis, so the card holds one part beside the rank's own (and nothing
+    whole when ``device`` is the host)."""
+    mesh = placement.mesh
+    device = mesh.device if device is None else torch.device(device)
+    group = _model_group(mesh)
+    first = mesh.coords[DATA_AXIS] * mesh.shape[MODEL_AXIS]  # global rank of model rank 0
+    out = {}
+    for name in fields:
+        x, side = getattr(state, name), placement.side(name)
+        if side is None or not side.sharded:
+            out[name] = x.to(device)
+            continue
+        whole = torch.empty(side.shape, dtype=x.dtype, device=device)
+        if group is None:
+            whole.copy_(x)
+        else:
+            size = x.shape[side.dim]
+            for m in range(mesh.shape[MODEL_AXIS]):
+                mine = m == mesh.coords[MODEL_AXIS]
+                buf = (x.contiguous() if mine
+                       else torch.empty_like(x, memory_format=torch.contiguous_format))
+                buf = _collective(mesh, buf, lambda b: _broadcast(b, first + m, group))
+                whole.narrow(side.dim, m * size, size).copy_(buf)
+        out[name] = whole
+    return out
+
+
+def assemble_state(state, placement: Optional[Placement], device=None):
+    """The whole state on ``device`` (the mesh's by default) on every rank
+    of the model axis (a collective that every rank calls,
+    :func:`assemble`).  A state with no split side is returned as it is."""
+    if placement is None or not placement.sharded:
+        return state
+    return type(state)(**assemble(state, placement, type(state)._fields, device))
 
 
 def shard_columns(packed: torch.Tensor, mesh: Mesh) -> torch.Tensor:

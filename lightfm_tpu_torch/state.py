@@ -50,7 +50,8 @@ def table_width(no_components: int) -> int:
 def _make_table(gen: torch.Generator, n: int, D: int, W: int, device) -> torch.Tensor:
     """[n, W] table: (U[0,1) - 0.5) / D in cols 0..D-1, zeros after."""
     table = torch.zeros((n, W), dtype=torch.float32, device=device)
-    table[:, :D] = (torch.rand((n, D), generator=gen, device=device) - 0.5) / D
+    # In place: the same values as (rand - 0.5) / D, with one temporary.
+    table[:, :D] = torch.rand((n, D), generator=gen, device=device).sub_(0.5).div_(D)
     return table
 
 
@@ -61,6 +62,8 @@ def init_state(
     random_state: np.random.RandomState,
     adagrad: bool,
     device="cpu",
+    share_seed=None,
+    part=None,
 ) -> ModelState:
     """Initialise latent state on ``device``.
 
@@ -70,15 +73,25 @@ def init_state(
     exactly as the JAX package draws it, then feeds a ``torch.Generator``
     on the device, so the numbers differ from ``jax.random``'s but seeded
     runs stay deterministic.
+
+    Under a mesh, ``share_seed`` maps the seed drawn here to the one every
+    rank uses (rank 0's), and ``part(field, whole)`` cuts each table to the
+    part this rank holds as soon as it is drawn, so the device holds one
+    whole table at a time and the accumulators only at part size.
     """
     D = no_components
     W = table_width(D)
     seed = int(random_state.randint(0, np.iinfo(np.int32).max))
+    if share_seed is not None:
+        seed = share_seed(seed)
     gen = torch.Generator(device=device).manual_seed(seed)
 
+    def cut(field, whole):
+        return whole if part is None else part(field, whole)
+
     # Reference init order: item embeddings first, then user (lightfm.py:287-306).
-    item = _make_table(gen, no_item_features, D, W, device)
-    user = _make_table(gen, no_user_features, D, W, device)
+    item = cut("item_table", _make_table(gen, no_item_features, D, W, device))
+    user = cut("user_table", _make_table(gen, no_user_features, D, W, device))
     grad_init = 1.0 if adagrad else 0.0
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return ModelState(

@@ -18,7 +18,10 @@ paths run data-parallel: every rank draws the same epoch and steps over its
 data coordinate's columns of every batch, the steps all-gather what the
 update needs, and every rank applies the same update.  The generic path
 also takes example-sharded input (``TrainData.examples_sharded``) and the
-stratified local shuffle (:func:`_shuffle_local_slice`, ``shuffle="local"``).
+stratified local shuffle (:func:`_shuffle_local_slice`, ``shuffle="local"``),
+and tables split over the model axis by rows or components (``placement``,
+:func:`lightfm_tpu_torch.parallel.mesh.plan_placement`): its steps gather
+the rows they read and apply the touches of the part each rank holds.
 
 Each epoch's random draws come from a ``torch.Generator`` on the device
 seeded with that epoch's seed (one per epoch, drawn by the model from its
@@ -312,7 +315,8 @@ def _epoch_batches(data: TrainData, draws: GenericDraws, batch_size: int, mesh, 
 
 
 def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: Hyperparams,
-                  batch_size: int, mesh=None, shuffle: str = "global") -> ModelState:
+                  batch_size: int, mesh=None, shuffle: str = "global",
+                  placement=None) -> ModelState:
     """One generic epoch (``lightfm_tpu/train.py:258-320``): the shuffle,
     then one step per batch; with L2 on, the mid-epoch rescale guard after
     every step (``locked_regularize``, template:678-691) and a fold at the
@@ -323,7 +327,10 @@ def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: H
     quantities over the data axis and applies the full batch's update
     (``losses._apply_pointwise`` / ``_apply_pairwise``), so every replica
     takes the single-device step.  ``shuffle="local"`` takes each rank's
-    keys from ``draws.perm`` viewed as ``[n_data, n_local]``."""
+    keys from ``draws.perm`` viewed as ``[n_data, n_local]``.  ``placement``
+    (a ``Placement`` of ``state`` on ``mesh``): the steps gather the table
+    rows they read over the model axis and update the part of each table
+    this rank holds; the folds are local."""
     from lightfm_tpu_torch.fast_warp import _unpack_batch5
 
     shuffled, cols = _epoch_batches(data, draws, batch_size, mesh, shuffle)
@@ -333,7 +340,8 @@ def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: H
         batch = _unpack_batch5(shuffled[b])
         state = step(state, batch, data.user_feats, data.item_feats, data.positives,
                      data.train_items, hp,
-                     _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh)
+                     _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh,
+                     placement=placement)
         if lazy_reg:
             state = maybe_fold_scales(state)
     if lazy_reg:
@@ -348,11 +356,12 @@ def _no_op(hp: Hyperparams) -> bool:
     return hp.max_sampled == 0 and hp.loss in ("warp", "warp-kos")
 
 
-def _epoch(state, data, seed: int, hp, batch_size, fast, mesh=None, shuffle="global"):
+def _epoch(state, data, seed: int, hp, batch_size, fast, mesh=None, shuffle="global",
+           placement=None):
     gen = torch.Generator(device=data.packed.device).manual_seed(int(seed))
     if not fast:
         draws = draw_generic_epoch(gen, data, hp, batch_size, mesh)
-        return generic_epoch(state, data, draws, hp, batch_size, mesh, shuffle)
+        return generic_epoch(state, data, draws, hp, batch_size, mesh, shuffle, placement)
     from lightfm_tpu_torch import fast_warp
 
     draws = fast_warp.draw_epoch(gen, data, hp, batch_size)
@@ -360,21 +369,24 @@ def _epoch(state, data, seed: int, hp, batch_size, fast, mesh=None, shuffle="glo
 
 
 def run_epochs(state: ModelState, data: TrainData, seeds, hp: Hyperparams,
-               batch_size: int, fast=False, mesh=None, shuffle: str = "global") -> ModelState:
+               batch_size: int, fast=False, mesh=None, shuffle: str = "global",
+               placement=None) -> ModelState:
     """One epoch per seed in ``seeds`` (uint32 values, one per epoch from
     the model's RandomState).  Returns a new state; the caller's tensors
     are left as they were (both paths update a copy in place).  Under a
     ``mesh`` every rank must pass the same seeds (``LightFM.fit`` takes
-    rank 0's) and equal states."""
+    rank 0's) and equal states, placed as ``placement`` (the generic path
+    only: the fast path takes replicated tables)."""
     if _no_op(hp) or len(seeds) == 0:
         return state
     state = ModelState(*(x.clone() for x in state))
     for seed in seeds:
-        state = _epoch(state, data, int(seed), hp, batch_size, fast, mesh, shuffle)
+        state = _epoch(state, data, int(seed), hp, batch_size, fast, mesh, shuffle, placement)
     return state
 
 
 def run_epoch(state: ModelState, data: TrainData, seed: int, hp: Hyperparams,
-              batch_size: int, fast=False, mesh=None, shuffle: str = "global") -> ModelState:
+              batch_size: int, fast=False, mesh=None, shuffle: str = "global",
+              placement=None) -> ModelState:
     """One epoch seeded by ``seed`` (the verbose per-epoch fit loop)."""
-    return run_epochs(state, data, [seed], hp, batch_size, fast, mesh, shuffle)
+    return run_epochs(state, data, [seed], hp, batch_size, fast, mesh, shuffle, placement)

@@ -412,9 +412,9 @@ def _assert_generic_like_jax(data, item_features=None, **kw):
 
 
 def test_out_of_slice_configurations_raise(planted):
-    """Configurations the fast path turns down train on the generic path;
-    only a mesh's row and component partitions raise (ROADMAP.md item 7b),
-    and a mesh that is not a ``Mesh`` raises ``TypeError``."""
+    """Configurations the fast path turns down train on the generic path, a
+    mesh's row partition among them, and a mesh that is not a ``Mesh``
+    raises ``TypeError``."""
     def tags(density):
         return sp.hstack([sp.identity(8000, dtype=np.float32, format="csr"),
                           sp.random(8000, 50, density=density, format="csr",
@@ -424,8 +424,9 @@ def test_out_of_slice_configurations_raise(planted):
     # rows wider than MAX_FAST_FEAT_NNZ on the generic path.
     _assert_generic_like_jax(planted, item_features=tags(0.05), loss="logistic")
     _assert_generic_like_jax(planted, item_features=tags(0.5))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        _tm(mesh=make_mesh(device="cpu"), table_partition="rows").fit(planted, epochs=1)
+    rows = _tm(mesh=make_mesh(device="cpu"), table_partition="rows", fast_path="on")
+    assert rows.fit(planted, epochs=1)._staged_fast is False
+    assert rows._placement.item.layout == "rows"
     with pytest.raises(TypeError):
         _tm(mesh=object()).fit(planted, epochs=1)
 

@@ -356,8 +356,9 @@ def test_midfit_checkpoint_validation(planted, tmp_path):
         m.fit(planted, epochs=2, checkpoint_every_n_epochs=1)
     with pytest.raises(ValueError, match="must be >= 1"):
         m.fit(planted, epochs=2, checkpoint_every_n_epochs=0, checkpoint_path=str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        _tm(mesh=make_mesh(device="cpu"), table_partition="components").fit(planted, epochs=1)
+    split = _tm(mesh=make_mesh(device="cpu"), table_partition="components")
+    split.fit(planted, epochs=2, checkpoint_every_n_epochs=1, checkpoint_path=str(tmp_path / "c"))
+    assert split._placement.item.layout == "components"
     with pytest.raises(TypeError):
         _tm(mesh=object()).fit(planted, epochs=1)
 

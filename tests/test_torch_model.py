@@ -178,8 +178,8 @@ def test_recommend_streaming_matches_dense(models, monkeypatch):
 
 
 def test_recommend_rejects_a_mesh():
-    """A mesh's row partition (ROADMAP.md item 7b) raises, and so does a
-    mesh that is not a ``lightfm_tpu_torch.parallel.Mesh``."""
+    """A mesh's row partition serves (a state set without a fit is whole),
+    and a mesh that is not a ``lightfm_tpu_torch.parallel.Mesh`` raises."""
     from lightfm_tpu_torch.parallel import make_mesh
 
     state = interop.state_from_numpy(
@@ -189,8 +189,8 @@ def test_recommend_rejects_a_mesh():
     m = lightfm_tpu_torch.LightFM(device="cpu", mesh=make_mesh(device="cpu"),
                                   table_partition="rows")
     m._state = state
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        m.recommend([0], k=2)
+    scores, ids = m.recommend([0], k=2)
+    assert ids.shape == (1, 2) and np.array_equal(scores, np.zeros((1, 2), np.float32))
     m = lightfm_tpu_torch.LightFM(device="cpu", mesh=object())
     m._state = state
     with pytest.raises(TypeError):

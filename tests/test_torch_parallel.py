@@ -145,18 +145,20 @@ def test_collective_blocks_round_trip_every_dtype():
 
 
 @pytest.mark.parametrize("partition", ["rows", "components"])
-def test_row_and_component_partitions_raise_item_7b(partition):
+def test_row_and_component_partitions_train_on_one_rank(partition):
     """``tests/test_sharding.py::test_sharded_fit_trains`` and
-    ``::test_state_sharding_layouts`` for the partitions of ROADMAP.md item
-    7b: fit, recommend and shard_state raise and name the item."""
+    ``::test_state_sharding_layouts`` on a one-rank mesh: fit, shard_state
+    and recommend work, the one rank holding the whole table as its part
+    (more ranks: ``tests/test_torch_parallel_partition.py``)."""
     m = _tm(loss="warp", mesh=make_mesh(device="cpu"), table_partition=partition)
-    with pytest.raises(NotImplementedError, match="7b"):
-        m.fit(_small_data(), epochs=1)
+    m.fit(_small_data(), epochs=1)
+    assert m._placement.item.layout == partition and m._staged_fast is False
+    assert m._state.item_table.shape == (256, table_width(10))
     state = init_state(8, 256, 128, np.random.RandomState(0), adagrad=True)
-    with pytest.raises(NotImplementedError, match="7b"):
-        shard_state(state, make_mesh(device="cpu"), partition)
-    with pytest.raises(NotImplementedError, match="7b"):
-        m.recommend([0], k=2)
+    placed = shard_state(state, make_mesh(device="cpu"), partition)
+    assert all(torch.equal(a, b) for a, b in zip(placed, state))
+    scores, ids = m.recommend([0], k=2)
+    assert ids.shape == (1, 2) and np.isfinite(scores).all()
 
 
 def test_a_mesh_that_is_not_a_mesh_raises_type_error():
@@ -264,8 +266,8 @@ def test_build_local_train_data_single_process():
 
 def test_auto_table_partition_resolution(monkeypatch):
     """``tests/test_sharding.py::test_auto_table_partition_resolution``:
-    replicated while the state fits the budget; beyond it "rows", which is
-    ROADMAP.md item 7b and raises."""
+    replicated while the state fits the budget; beyond it "rows", which
+    trains."""
     train_m = _small_data()
     m = _tm(loss="warp", mesh=make_mesh(device="cpu"), table_partition="auto")
     m.fit(train_m, epochs=1)
@@ -273,9 +275,9 @@ def test_auto_table_partition_resolution(monkeypatch):
     monkeypatch.setenv("LIGHTFM_TPU_REPLICATED_TABLE_BUDGET", "1024")
     m2 = _tm(loss="warp", mesh=make_mesh(device="cpu"), table_partition="auto")
     with pytest.warns(UserWarning, match="model' axis has size 1"):
-        with pytest.raises(NotImplementedError, match="7b"):
-            m2.fit(train_m, epochs=1)
-    assert m2._resolve_table_partition() == "rows"
+        m2.fit(train_m, epochs=1)
+    assert m2._resolve_table_partition() == "rows" and m2._placement.item.layout == "rows"
+    assert np.isfinite(m2.item_embeddings).all()
     assert _tm(loss="warp", table_partition="auto")._resolve_table_partition() == "replicated"
 
 

@@ -266,8 +266,8 @@ def fast_fits(tmp_path_factory):
 def test_mesh_fast_path_engages(fast_fits):
     """``tests/test_fast_warp_mesh.py::test_mesh_fast_path_engages``: the
     data-parallel path engages; sharded examples and a batch whose rank
-    slice is not whole pools stay on the generic path (row-sharded tables
-    raise: ROADMAP.md item 7b, ``tests/test_torch_parallel.py``)."""
+    slice is not whole pools stay on the generic path (so do row- and
+    component-split tables: ``tests/test_torch_parallel_partition.py``)."""
     for r in fast_fits:
         assert str(r["engaged"]) == "einsum"
         assert not r["sharded_engaged"] and not r["indivisible_engaged"]
