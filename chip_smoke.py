@@ -56,8 +56,13 @@ child processes: two gloo ranks on a (1, 2) mesh train one generic epoch
 at the ``synth-5m-warp-d64`` widths (depth cut to 4 steps) with the tables
 split (a) by rows and (b) by components, each rank holding half of each
 table; the assembled state is held against the one-device fit of the same
-data and seed, and ``predict_rank`` (through K2 and ``pair_scores`` on the
-assembled state) and ``recommend`` against the one-device model's; then
+data and seed; ``predict_rank`` (through K2 and ``pair_scores``, the users'
+rows read by id over the model axis and the item table assembled),
+``recommend`` (each rank scoring its own item rows under rows) and
+``predict`` (the pairs' rows) run on the split model, each from a cold
+serving cache with its peak bytes, bytes sent and the tables it asked to
+assemble (never the user table), and are held against the one-device
+model's and the replicated-table model's on the same mesh; then
 (c) four gloo ranks on a (2, 2) mesh train the quickstart size by rows with
 example-sharded input and the local shuffle, checkpointing every 10
 epochs, and the last checkpoint loads in this process as the assembled
@@ -2678,21 +2683,40 @@ def _fit_peaks(torch, fit, *args, **kwargs):
     return out, peaks
 
 
+def record_assemble() -> list:
+    """From now on in this process, the fields of each call of
+    ``parallel.mesh.assemble``, one tuple a call."""
+    from lightfm_tpu_torch.parallel import mesh as pmesh
+
+    asked, real = [], pmesh.assemble
+
+    def assemble(state, placement, fields, device=None):
+        asked.append(tuple(fields))
+        return real(state, placement, fields, device)
+
+    pmesh.assemble = assemble
+    return asked
+
+
 def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     """(a), (b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=1,
     n_model=2)``: one generic epoch at full width with the tables split by
     rows, then by components; each rank holds half of each table, the
     assembled state is the one-device ``fast_path="off"`` fit's (bitwise
     expected), ``predict_rank`` for 2,048 users goes through K2 and
-    ``pair_scores`` on the assembled state and equals the one-device
-    model's, and ``recommend`` over the mesh returns the ids of a
-    replicated-table model on the same mesh with the same state.  Logs each
-    rank's peak bytes on the card while placing, fitting and serving."""
+    ``pair_scores`` and equals the one-device model's, ``recommend`` over
+    the mesh returns bitwise what a replicated-table model on the same mesh
+    with the same state returns, and ``predict`` equals the one-device
+    model's.  No serving call assembles the user table, and under rows
+    ``recommend`` and ``predict`` assemble nothing.  Logs each rank's peak
+    bytes on the card while placing and fitting, and for each serving call
+    its peak bytes and the bytes it sent."""
     import pickle
 
     from lightfm_tpu_torch import LightFM
     from lightfm_tpu_torch.state import ModelState, table_width
 
+    asked = record_assemble()
     mesh = _card_mesh(torch, rank, n_data=1, n_model=2)
     coo = split_interactions(seed)
     csr = coo.tocsr()
@@ -2730,19 +2754,46 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
         whole = m._whole_state()  # on the host
         rec["whole_bytes"] = _state_bytes(whole)
         rec["digests"] = _digests(whole)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        ranks, launches = counted_all(m.predict_rank, test, check_intersections=False)
-        torch.cuda.synchronize()
-        rec["predict_rank_s"] = time.perf_counter() - t0
-        rec["peaks"]["serve"] = torch.cuda.max_memory_allocated() - held
-        rec["predict_rank_launches"] = {k: launches[k] for k in ("rank_counts", "pair_scores")}
+        rec["serve"] = {}
+        t_serve = time.perf_counter()
+
+        def serve(name, fn, *args, **kwargs):
+            """``fn(*args, **kwargs)`` on the split model from a cold serving
+            cache, recording the rank's peak bytes above its prior
+            allocation, the bytes it sent, its collectives, host-clock
+            seconds, launches and the fields it asked ``assemble`` for."""
+            m._drop_state_dependent_cache()
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            mesh.reset_stats()
+            n0 = len(asked)
+            t0 = time.perf_counter()
+            result, launches = counted_all(fn, *args, **kwargs)
+            torch.cuda.synchronize()
+            fields = sorted({f for call in asked[n0:] for f in call})
+            rec["serve"][name] = {
+                "peak": torch.cuda.max_memory_allocated() - held, "sent": mesh.stats["bytes"],
+                "collectives": mesh.stats["calls"], "s": time.perf_counter() - t0,
+                "asked": fields,
+                "launches": {k: launches[k] for k in ("rank_counts", "pair_scores")},
+            }
+            check("user_table" not in fields, f"{partition}: {name} on the split model "
+                  f"assembles no user table (it asked for {fields})")
+            return result
+
+        ranks = serve("predict_rank", m.predict_rank, test, check_intersections=False)
+        launches = rec["predict_rank_launches"] = rec["serve"]["predict_rank"]["launches"]
         check(launches["rank_counts"] > 0 and launches["pair_scores"] > 0,
               f"{partition}: predict_rank on the split model launched K2 "
               f"{launches['rank_counts']} and pair_scores {launches['pair_scores']} times")
-        scores, ids = m.recommend(rec_users, k=10)
+        scores, ids = serve("recommend", m.recommend, rec_users, k=10)
+        pairs = (np.repeat(rec_users, 10), ids.ravel())
+        pred = serve("predict", m.predict, *pairs)
+        check(rec["serve"]["predict"]["asked"] == [], f"{partition}: predict assembles nothing")
+        if partition == "rows":
+            check(rec["serve"]["recommend"]["asked"] == [],
+                  "rows: recommend assembles nothing (each rank scores its own item rows)")
         # The same state with replicated tables on the same mesh: both serve
         # through top_k_sharded, so the split tables must change nothing.
         rep = pickle.loads(pickle.dumps(m))
@@ -2752,6 +2803,7 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
               f"{partition}: recommend on the split model is bitwise that of the "
               "replicated-table model on the same mesh")
         del rep
+        rec["serve_s"] = time.perf_counter() - t_serve
         if rank == 0:
             share, worst = _within(torch, whole, one_host, MESH_STEP_RTOL, MESH_STEP_ATOL)
             bitwise = all(torch.equal(a, b) for a, b in zip(whole, one_host))
@@ -2766,7 +2818,10 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
             # one-device model the whole: cuBLAS may pick kernels that sum
             # the 73 terms in another order, so near-ties may swap.  The
             # mesh's ids must be a top 10 by the one-device model's scores.
-            own = one.predict(np.repeat(rec_users, 10), ids.ravel()).reshape(ids.shape)
+            own = one.predict(*pairs)
+            check(np.array_equal(pred, own), f"{partition}: predict of {len(own)} pairs on the "
+                  "split model equals the one-device model's")
+            own = own.reshape(ids.shape)
             err = max(float(np.abs(scores - one_s).max()), float(np.abs(own - one_s).max()))
             same = float((ids == one_rec).all(axis=1).mean())
             check(err <= 1e-5 + 1e-5 * float(np.abs(one_s).max()),
@@ -2861,9 +2916,14 @@ def split_path(torch, seed: int) -> dict:
                 f"sent a step; state {x['state_bytes'] / 1e6:.3f} MB on the rank of "
                 f"{x['whole_bytes'] / 1e6:.3f} MB whole; peak MB above the rank's prior "
                 f"allocation: placing {x['peaks']['placed'] / 1e6:.3f}, fitting "
-                f"{x['peaks']['fit'] / 1e6:.3f}, serving {x['peaks']['serve'] / 1e6:.3f}; "
-                f"predict_rank {x['predict_rank_s'] * 1e3:.1f} ms (host clock, assembly "
-                f"included), launches {json.dumps(x['predict_rank_launches'])}")
+                f"{x['peaks']['fit'] / 1e6:.3f}")
+            log(f"    serving, each call from a cold cache ({x['serve_s']:.2f} s of the phase "
+                "with the checks): " + "; ".join(
+                    f"{name} peak {c['peak'] / 1e6:.3f} MB above the prior allocation, "
+                    f"{c['sent'] / 1e6:.3f} MB sent in {c['collectives']} collectives, "
+                    f"{c['s'] * 1e3:.1f} ms (host clock), assembled "
+                    f"{'/'.join(c['asked']) or 'nothing'}, launches {json.dumps(c['launches'])}"
+                    for name, c in x["serve"].items()))
     one_peaks = ab[0]["one_peaks"]
     log(f"  one device, no mesh ({card}): peak MB placing {one_peaks['placed'] / 1e6:.3f}, "
         f"fitting {one_peaks['fit'] / 1e6:.3f}")

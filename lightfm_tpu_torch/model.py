@@ -31,7 +31,13 @@ import torch
 from lightfm_tpu_torch.config import Hyperparams
 from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
-from lightfm_tpu_torch.sparse import PaddedRows, content_fingerprint, identity_rows, pad_csr
+from lightfm_tpu_torch.sparse import (
+    IdentityRows,
+    PaddedRows,
+    content_fingerprint,
+    identity_rows,
+    pad_csr,
+)
 from lightfm_tpu_torch.state import ModelState
 
 __all__ = ["LightFM"]
@@ -73,11 +79,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _predict_pairs(state: ModelState, user_feats, item_feats, user_ids, item_ids):
+def _predict_pairs(state: ModelState, user_feats, item_feats, user_ids, item_ids,
+                   placement=None):
     # Lazy-reg scales are folded into the tables at every epoch end, so
-    # prediction skips the scale multiply.
-    u_rep = batch_representation(state.user_table, user_feats, user_ids)
-    i_rep = batch_representation(state.item_table, item_feats, item_ids)
+    # prediction skips the scale multiply.  Under a placement each side's
+    # rows are read through it: only the pairs' rows move.
+    user, item = (None, None) if placement is None else (placement.user, placement.item)
+    u_rep = batch_representation(state.user_table, user_feats, user_ids, placement=user)
+    i_rep = batch_representation(state.item_table, item_feats, item_ids, placement=item)
     return score_pairs(u_rep, i_rep)
 
 
@@ -189,7 +198,6 @@ class LightFM:
             self._state = ModelState(*(x.to(self._device) for x in self._state))
         self._drop_mirrors()
         self._serving_cache = {}
-        self._assembled = None
 
     # ------------------------------------------------------------------
     # State plumbing
@@ -198,12 +206,11 @@ class LightFM:
     def _reset_state(self):
         self._state: ModelState | None = None
         # Where a mesh fit placed the state (parallel.mesh.Placement; None:
-        # whole tensors), and under a row or component partition the whole
-        # state assembled for serving (dropped whenever the state changes).
+        # whole tensors).
         self._placement = None
-        self._assembled = None
-        # recommend()'s catalog / compressed index and the identity-keyed
-        # host prep of the input matrices.
+        # recommend()'s catalog, catalog block or compressed index, under a
+        # split item side the whole item table assembled for serving, and
+        # the identity-keyed host prep of the input matrices.
         self._serving_cache: dict = {}
         # Writable host mirrors of the fused state tables, handed out (as
         # views) by the state-attribute getters so user code can edit them
@@ -393,9 +400,15 @@ class LightFM:
         rank updates the part it holds; no card holds the whole state,
         which stays split after the fit.  The state attributes, the
         representations, pickling and checkpoints then read the whole
-        state assembled on the host, and ``predict``, ``predict_rank`` and
-        the metrics and ``recommend`` the two whole tables assembled on the
-        card: these are collectives that every rank of the mesh calls.
+        state assembled on the host.  Serving never assembles the user
+        table: ``predict``, ``predict_rank`` and the metrics and
+        ``recommend`` read the rows of the users they serve over the model
+        axis; ``predict`` reads the pairs' item rows the same way,
+        ``predict_rank`` and the compressed ``recommend`` the whole item
+        table assembled on the card, and the other ``recommend`` modes
+        split the catalog over the model axis (under ``"rows"`` with
+        identity item features each rank scores its own rows).  These are
+        collectives that every rank of the mesh calls.
         Checkpoints are written by rank 0 alone.
 
         ``checkpoint_every_n_epochs``/``checkpoint_path``: when set, the
@@ -439,7 +452,7 @@ class LightFM:
 
         # Fold pending in-place edits of handed-out state views first.
         self._sync_mirrors()
-        self._assembled = None
+        self._drop_state_dependent_cache()
         interactions = interactions.tocoo()
         if interactions.dtype != CYTHON_DTYPE:
             interactions.data = interactions.data.astype(CYTHON_DTYPE)
@@ -558,7 +571,6 @@ class LightFM:
             else:
                 self._state = run_epochs(self._state, data, seeds, hp, batch_size, **epoch_kw)
                 self._check_finite()
-            self._assembled = None
             done += n
             if checkpoint_every_n_epochs is not None:
                 self._save_checkpoint(checkpoint_path)
@@ -679,26 +691,65 @@ class LightFM:
 
         return assemble_state(self._state, self._placement, device="cpu")
 
-    def _serving_state(self) -> ModelState:
-        """The state that serving reads: ``_state`` itself, or under a row
-        or component partition the two whole tables assembled on the card
-        (a collective: every rank of the mesh calls it), kept until the
-        state changes.  The optimizer fields stay this rank's parts, which
-        serving never reads."""
-        if not self._split():
-            return self._state
-        if self._assembled is None:
-            from lightfm_tpu_torch.parallel.mesh import assemble
+    def _user_placement(self):
+        """The user side's placement, through which serving reads the rows
+        of the users it serves (None: the user table is whole).  Serving
+        never assembles the user table."""
+        return None if self._placement is None else self._placement.user
 
-            self._assembled = self._state._replace(
-                **assemble(self._state, self._placement, ("item_table", "user_table")))
-        return self._assembled
+    def _serving_item_table(self) -> torch.Tensor:
+        """The whole item table, for the calls that score the whole catalog
+        (``predict_rank`` and the metrics, the compressed index, a catalog
+        block that is not this rank's own rows): the state's, or under a
+        split item side its parts assembled on the card (a collective:
+        every rank of the mesh calls it), kept in the serving cache until
+        the state changes."""
+        p = self._placement
+        if p is None or not p.item.sharded:
+            return self._state.item_table
+        key = ("catalog", "item_table")
+        table = self._serving_cache.get(key)
+        if table is None:
+            from lightfm_tpu_torch.parallel import mesh as pmesh
+
+            table = pmesh.assemble(self._state, p, ("item_table",))["item_table"]
+            self._serving_cache[key] = table
+        return table
+
+    def _catalog_block(self, item_feats, n_items: int, cacheable: bool):
+        """This model rank's ``retrieval.CatalogBlock`` of the augmented
+        catalog, for ``retrieval.top_k_sharded``: ``retrieval.shard_rows``'s
+        split whatever the placement, so a split model returns what the
+        replicated-table model on the same mesh returns.  Under ``"rows"``
+        with identity item features over the whole item table the block is
+        the rank's own rows (no collective); otherwise it is cut from
+        :meth:`_serving_item_table`.  Cached with identity features until
+        the state changes."""
+        from lightfm_tpu_torch import retrieval
+        from lightfm_tpu_torch.parallel.mesh import MODEL_AXIS
+
+        mesh = self.mesh
+        key = ("catalog", "block", n_items, mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS])
+        block = self._serving_cache.get(key) if cacheable else None
+        if block is not None:
+            return block
+        item = None if self._placement is None else self._placement.item
+        if (item is not None and item.layout == "rows" and isinstance(item_feats, IdentityRows)
+                and n_items == item.shape[0]):
+            block = retrieval.block_of(retrieval.catalog_representations(
+                self._state.item_table, item_feats, item.stop - item.start), item.start)
+        else:
+            catalog = retrieval.catalog_representations(self._serving_item_table(), item_feats,
+                                                        n_items)
+            block = retrieval.catalog_block(catalog, n_items, mesh)
+        if cacheable:
+            self._serving_cache[key] = block
+        return block
 
     def _put_whole(self, attr: str, whole: torch.Tensor):
         """Replace a state field by a whole tensor: this rank keeps its part."""
         part = whole if self._placement is None else self._placement.part(attr, whole)
         self._state = self._state._replace(**{attr: part.to(self._device)})
-        self._assembled = None
 
     def _mirror(self, attr):
         m = self._host_mirrors.get(attr)
@@ -727,9 +778,8 @@ class LightFM:
 
     def _drop_state_dependent_cache(self):
         """Drop serving-cache entries derived from MODEL STATE (catalog,
-        compressed index) and the assembled state, keeping the
+        catalog block, assembled item table, compressed index), keeping the
         identity-keyed host prep."""
-        self._assembled = None
         self._serving_cache = {
             k: v
             for k, v in self._serving_cache.items()
@@ -1024,11 +1074,12 @@ class LightFM:
         )
 
         scores = _predict_pairs(
-            self._serving_state(),
+            self._state,
             self._pad_features_cached(user_features),
             self._pad_features_cached(item_features),
             torch.from_numpy(user_ids).to(self._device),
             torch.from_numpy(item_ids).to(self._device),
+            self._placement,
         )
         return scores.cpu().numpy().astype(np.float32, copy=False)
 
@@ -1096,12 +1147,13 @@ class LightFM:
             )
 
         ranks_data = predict_ranks_padded(
-            self._serving_state(),
+            self._state._replace(item_table=self._serving_item_table()),
             self._pad_features_cached(user_features),
             self._pad_features_cached(item_features),
             test_interactions,
             train_interactions,
             cache=self._serving_cache,
+            user_placement=self._user_placement(),
         )
 
         return sp.csr_matrix(
@@ -1139,7 +1191,6 @@ class LightFM:
             from lightfm_tpu_torch.parallel.mesh import check_mesh
 
             check_mesh(self.mesh)
-        state = self._serving_state()
         user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
         if n_items is None:
             if item_features is not None:
@@ -1149,7 +1200,7 @@ class LightFM:
             elif getattr(self, "n_items_", None) is not None:
                 n_items = self.n_items_
             else:
-                n_items = state.item_table.shape[0]
+                n_items = self._table_shape("item")[0]
         if item_features is None and getattr(self, "_item_features_used", False):
             raise ValueError(
                 "This model was fitted with item_features; recommend() needs "
@@ -1187,38 +1238,42 @@ class LightFM:
 
         uid = torch.from_numpy(user_ids).to(self._device)
         k = min(int(k), int(n_items))  # never return catalog padding
+        user_placement = self._user_placement()
         # Catalog structures are cached for the identity-features case
         # (invalidated whenever model state changes).
         cacheable = item_features is None or self._is_identity(item_features)
         if mode == "compressed":
             index = self._serving_cache.get(("index", n_items)) if cacheable else None
             if index is None:
-                index = retrieval.build_compressed_index(state, item_feats, n_items)
+                index = retrieval.build_compressed_index(self._serving_item_table(), item_feats,
+                                                         n_items)
                 if cacheable:
                     self._serving_cache[("index", n_items)] = index
             scores, ids = retrieval.top_k_compressed(
-                state, user_feats, index, uid, k,
-                exclude_idx=exclude_idx, rerank_mult=rerank_mult,
+                self._state, user_feats, index, uid, k,
+                exclude_idx=exclude_idx, rerank_mult=rerank_mult, user_placement=user_placement,
             )
         elif mode in ("auto", "exact", "approx") and self.mesh is not None:
             scores, ids = retrieval.top_k_sharded(
-                state, user_feats, item_feats, uid, k, n_items, self.mesh,
-                exclude_idx=exclude_idx,
+                self._state, user_feats, self._catalog_block(item_feats, n_items, cacheable),
+                uid, k, self.mesh,
+                exclude_idx=exclude_idx, user_placement=user_placement,
             )
         elif mode in ("auto", "exact", "approx"):
             catalog = self._serving_cache.get(("catalog", n_items)) if cacheable else None
-            if catalog is None and cacheable:
+            if catalog is None:
                 # Streaming-size catalogs are padded to the tile multiple.
                 multiple = (
                     131_072 if n_items > retrieval.STREAMING_CATALOG_LIMIT else 128
                 )
                 catalog = retrieval.build_catalog(
-                    state, item_feats, n_items, multiple=multiple
+                    self._serving_item_table(), item_feats, n_items, multiple=multiple
                 )
-                self._serving_cache[("catalog", n_items)] = catalog
+                if cacheable:
+                    self._serving_cache[("catalog", n_items)] = catalog
             scores, ids = retrieval.top_k(
-                state, user_feats, item_feats, uid, k, n_items,
-                exclude_idx=exclude_idx, catalog=catalog,
+                self._state, user_feats, item_feats, uid, k, n_items,
+                exclude_idx=exclude_idx, catalog=catalog, user_placement=user_placement,
             )
         else:
             raise ValueError(f"Unknown retrieval mode: {mode!r}")
@@ -1302,7 +1357,7 @@ class LightFM:
         d.pop("_host_mirrors", None)
         d.pop("_mirror_snaps", None)
         d.pop("mesh", None)  # device handles are not picklable
-        for name in ("_placement", "_assembled", "_state"):  # the whole state goes below
+        for name in ("_placement", "_state"):  # the whole state goes below
             d.pop(name, None)
         d.pop("_serving_cache", None)  # rebuildable device buffers
         # The staged device-resident training set: rebuilt by every fit.
@@ -1319,7 +1374,7 @@ class LightFM:
         state_np = d.pop("_state_np", None)
         self.__dict__.update(d)
         self.mesh = None
-        self._placement = self._assembled = None
+        self._placement = None
         self._device = resolve_device(d["_device"])
         self._serving_cache = {}
         self._drop_mirrors()

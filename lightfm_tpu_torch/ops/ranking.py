@@ -105,14 +105,28 @@ def pad_catalog_neg_inf(item_aug: torch.Tensor, n_items: int, multiple: int) -> 
     return torch.cat([item_aug, pad_block], dim=0)
 
 
-def _catalog_representations(state, item_feats, n_items: int) -> torch.Tensor:
+def _catalog_representations(item_table: torch.Tensor, item_feats, n_items: int) -> torch.Tensor:
     """Augmented representations for catalog rows [0, n_items) (the test
-    matrix's column count, template:1301)."""
+    matrix's column count, template:1301) from the whole item table."""
     if isinstance(item_feats, IdentityRows):
-        rep = state.item_table[:n_items]
+        rep = item_table[:n_items]
     else:
-        rep = full_representations(state.item_table, trim_rows(item_feats, n_items))
+        rep = full_representations(item_table, trim_rows(item_feats, n_items))
     return _augment_items(rep).contiguous()
+
+
+def user_representations(user_table: torch.Tensor, user_feats, user_ids: torch.Tensor,
+                         placement=None, block=None) -> torch.Tensor:
+    """Augmented representations of ``user_ids``, ``[U, Wa]``, read through
+    the user side's ``placement`` (None: ``user_table`` is the whole table).
+    On a split side, ``block`` users at a time: a row gather over the model
+    axis holds n copies of its distinct rows (``gather_owned_rows``), so
+    reading in blocks bounds that transient at a block's rows."""
+    if block is None or placement is None or not placement.sharded:
+        return _augment_users(
+            batch_representation(user_table, user_feats, user_ids, placement=placement))
+    return torch.cat([user_representations(user_table, user_feats, ids, placement)
+                      for ids in user_ids.split(block)])
 
 
 def _mask_exclusions(scores: torch.Tensor, exclude_idx: torch.Tensor) -> torch.Tensor:
@@ -143,15 +157,16 @@ def _ranks_flat(
     train_idx: torch.Tensor,  # int32 [Upad, Ptr] (sentinel >= n_items)
     n_items: int,
     user_block: int,
+    user_placement=None,
 ) -> torch.Tensor:
     item_aug = pad_catalog_neg_inf(
-        _catalog_representations(state, item_feats, n_items), n_items, 128
+        _catalog_representations(state.item_table, item_feats, n_items), n_items, 128
     )
     out = []
     for u_ids, t_idx, t_valid, tr_idx in _user_blocks(
         user_ids, test_idx, test_valid, train_idx, user_block
     ):
-        u_aug = _augment_users(batch_representation(state.user_table, user_feats, u_ids))
+        u_aug = user_representations(state.user_table, user_feats, u_ids, user_placement)
         scores = _f32_dot(u_aug, item_aug.T)
         # Exclude train positives (template:1303).
         scores = _mask_exclusions(scores, tr_idx)
@@ -174,6 +189,7 @@ def _ranks_blocked(
     n_items: int,
     user_block: int,
     item_block: int,
+    user_placement=None,
 ) -> torch.Tensor:
     """Two-pass blocked variant for very large catalogs.
 
@@ -182,14 +198,14 @@ def _ranks_blocked(
     give identical floats, so tie handling stays exact.
     """
     item_aug = pad_catalog_neg_inf(
-        _catalog_representations(state, item_feats, n_items), n_items, item_block
+        _catalog_representations(state.item_table, item_feats, n_items), n_items, item_block
     )
     blocks = item_aug.split(item_block)
     out = []
     for u_ids, t_idx, t_valid, tr_idx in _user_blocks(
         user_ids, test_idx, test_valid, train_idx, user_block
     ):
-        u_aug = _augment_users(batch_representation(state.user_table, user_feats, u_ids))
+        u_aug = user_representations(state.user_table, user_feats, u_ids, user_placement)
         t_idx = t_idx.long()
 
         def block_scores(b, rep):
@@ -225,6 +241,8 @@ def _ranks_fused(
     train_idx: torch.Tensor,  # int32 [Upad, Ptr] (sentinel >= n_items)
     n_items: int,
     item_block: int,
+    user_placement=None,
+    user_block: int = 256,
 ) -> torch.Tensor:
     """Kernel-fused ranking: catalog scores never reach device memory.
 
@@ -235,17 +253,18 @@ def _ranks_fused(
     Unlike the JAX package, the excluded scores need no [U, chunk, Wa]
     gather (``pair_scores`` reads catalog rows in place), so that gather's
     budget is gone; the chunk width is instead budgeted on the [U, T, chunk]
-    compare mask (``_EXCL_MASK_BUDGET`` elements).
+    compare mask (``_EXCL_MASK_BUDGET`` elements).  On a split user side
+    the users' rows are read ``user_block`` at a time
+    (:func:`user_representations`).
     """
     # ALWAYS pad at least one row: the exclusion sentinel below points at
     # i_pad - 1, which must be a -inf pad row, not a real item.
     item_aug = pad_catalog_neg_inf(
-        _catalog_representations(state, item_feats, n_items), n_items + 1, item_block
+        _catalog_representations(state.item_table, item_feats, n_items), n_items + 1, item_block
     )
     i_pad = item_aug.shape[0]
-    u_aug = _augment_users(
-        batch_representation(state.user_table, user_feats, user_ids)
-    ).contiguous()
+    u_aug = user_representations(state.user_table, user_feats, user_ids, user_placement,
+                                 user_block).contiguous()
 
     # Invalid test slots get ts = +inf, so they count 0.
     safe_t = test_idx.clamp(max=i_pad - 1).int().contiguous()
@@ -419,12 +438,19 @@ def predict_ranks_padded(
     user_block: int = 256,
     item_block: int = 8192,
     cache=None,
+    user_placement=None,
 ) -> np.ndarray:
     """Ranks for every nnz of ``test_csr``, aligned with the CSR's data
     array (the layout the reference writes, `lightfm/lightfm.py:968-985`).
 
     Users are processed in train-degree tiers, and the host prep is
     memoized in ``cache`` when given (see :func:`_prepare_rank_tiers`).
+    ``state.item_table`` is the whole item table (the catalog every tier
+    scores); ``state.user_table`` is the whole user table, or this rank's
+    part of it with ``user_placement`` its
+    :class:`~lightfm_tpu_torch.parallel.mesh.TablePlacement`, through
+    which the ranked users' rows are read (a collective that every rank of
+    the model axis calls with the same matrices).
     """
     n_users, n_items = test_csr.shape
     if test_csr.nnz == 0:
@@ -442,12 +468,15 @@ def predict_ranks_padded(
         if _fused_tier(T, device.type):
             # Kernel-fused path: scores never reach device memory; any
             # catalog size.
-            ranks = _ranks_fused(*args, n_items=int(n_items), item_block=2048)
+            ranks = _ranks_fused(*args, n_items=int(n_items), item_block=2048,
+                                 user_placement=user_placement, user_block=ub)
         elif n_items <= FLAT_CATALOG_LIMIT:
-            ranks = _ranks_flat(*args, n_items=int(n_items), user_block=ub)
+            ranks = _ranks_flat(*args, n_items=int(n_items), user_block=ub,
+                                user_placement=user_placement)
         else:
             ranks = _ranks_blocked(
                 *args, n_items=int(n_items), user_block=ub, item_block=int(item_block),
+                user_placement=user_placement,
             )
         ranks = ranks.cpu().numpy()
         out[tier.nnz_pos] = ranks[tier.row_of, tier.pos_in_row]

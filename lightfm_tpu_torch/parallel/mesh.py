@@ -39,7 +39,11 @@ is drawn table by table and cut at once (``state.init_state``'s ``part``),
 a whole state is sent part by part (:func:`place_state`), and the whole
 state is assembled part by part into memory the caller names
 (:func:`assemble`): the host for checkpoints, pickles and the state
-attributes, the card for the two tables that serving reads.
+attributes, the card for the item table that ``predict_rank`` scores.
+Serving reads the rows of the users it serves through
+:meth:`TablePlacement.rows` and never assembles the user table;
+``recommend`` scores each model rank's block of the catalog, under
+``"rows"`` with identity item features the rows the rank holds.
 
 A world of one rank needs no process group: :func:`make_mesh` then builds a
 mesh of one rank whose collectives return their inputs.

@@ -7,8 +7,9 @@ whole catalog is cheap and batched:
 - :func:`top_k`: exact scoring + ``torch.topk``; catalogs beyond
   ``STREAMING_CATALOG_LIMIT`` stream through item blocks (per-block top-k,
   one exact merge) so peak memory is O(B x item_block).
-- :func:`top_k_sharded`: the catalog split over a mesh's model axis, a
-  local top-k per rank, the candidates all-gathered and merged;
+- :func:`top_k_sharded`: the catalog split over a mesh's model axis
+  (:func:`catalog_block`), a local top-k per rank, the candidates
+  all-gathered and merged;
 - :class:`CompressedIndex`: two-stage scoring -- int8-quantized item rows
   give a coarse score, the top ``rerank_mult * k`` survivors are re-scored
   exactly in fp32.
@@ -22,6 +23,11 @@ for the compressed index's coarse stage.
 
 Train-positive exclusion matches ``predict_ranks``'s masking semantics
 (``_lightfm_fast.pyx.template:1303``): excluded items score -inf.
+
+The catalog is built from the whole item table; the users' rows are read
+through the user side's placement (``user_placement``; None: the state's
+user table is whole), so a model whose user table is split over a mesh
+serves without assembling it.
 """
 
 from __future__ import annotations
@@ -32,49 +38,39 @@ import numpy as np
 import torch
 
 from lightfm_tpu_torch.ops.ranking import (
-    _augment_users,
     _catalog_representations as catalog_representations,
     _f32_dot,
     _mask_exclusions,
     pad_catalog_neg_inf as _pad_catalog,
+    user_representations,
 )
-from lightfm_tpu_torch.ops.representation import batch_representation
 
 # Catalogs wider than this stream through item blocks.
 STREAMING_CATALOG_LIMIT = 262_144
 
 
-def _user_aug(state, user_feats, user_ids: torch.Tensor) -> torch.Tensor:
-    return _augment_users(batch_representation(state.user_table, user_feats, user_ids))
-
-
 def _top_k_dense(
-    state,
-    user_feats,
+    u_aug: torch.Tensor,  # [B, Wa] augmented users
     item_aug: torch.Tensor,  # [I_pad, Wa] padded catalog
-    user_ids: torch.Tensor,  # int [B]
     exclude_idx: Optional[torch.Tensor],  # int [B, P] or None
     k: int,
 ):
     """Scores of the whole catalog, exclusions masked, exact top-k."""
-    scores = _f32_dot(_user_aug(state, user_feats, user_ids), item_aug.T)
+    scores = _f32_dot(u_aug, item_aug.T)
     if exclude_idx is not None:
         _mask_exclusions(scores, exclude_idx)
     return torch.topk(scores, k, dim=1)
 
 
 def _top_k_streaming(
-    state,
-    user_feats,
+    u_aug: torch.Tensor,
     item_aug: torch.Tensor,  # [I_pad, Wa]; I_pad % item_block == 0
-    user_ids: torch.Tensor,
     exclude_idx: Optional[torch.Tensor],
     k: int,
     item_block: int,
 ):
     """Blocked top-k for huge catalogs: per-block exact candidates, one
     exact merge, so the result is the global top-k."""
-    u_aug = _user_aug(state, user_feats, user_ids)
     cand_s, cand_i = [], []
     for b, rep in enumerate(item_aug.split(item_block)):
         start = b * item_block
@@ -92,10 +88,11 @@ def _top_k_streaming(
     return s, torch.cat(cand_i, 1).gather(1, j)
 
 
-def build_catalog(state, item_feats, n_items: int, multiple: int = 128) -> torch.Tensor:
-    """Padded augmented catalog for repeated top-k serving (cacheable)."""
+def build_catalog(item_table, item_feats, n_items: int, multiple: int = 128) -> torch.Tensor:
+    """Padded augmented catalog of the whole ``item_table``, for repeated
+    top-k serving (cacheable)."""
     return _pad_catalog(
-        catalog_representations(state, item_feats, n_items), n_items, multiple
+        catalog_representations(item_table, item_feats, n_items), n_items, multiple
     )
 
 
@@ -109,66 +106,117 @@ def top_k(
     exclude_idx: Optional[torch.Tensor] = None,
     catalog: Optional[torch.Tensor] = None,
     item_block: Optional[int] = None,
+    user_placement=None,
 ):
     """Top-k items for a batch of users: ``(scores [B, k], item_ids [B, k])``.
 
     ``exclude_idx`` is a sentinel-padded [B, P] int array of per-user items
     to exclude (e.g. train positives), sentinel >= n_items.  Pass a prebuilt
     ``catalog`` (:func:`build_catalog`) to amortise the representation build
-    across serving calls.
+    across serving calls; without one, ``state.item_table`` must be whole.
     """
+    u_aug = user_representations(state.user_table, user_feats, user_ids, user_placement)
     if n_items > STREAMING_CATALOG_LIMIT:
         item_block = item_block or 131_072
         item_aug = (
             catalog
             if catalog is not None and catalog.shape[0] % item_block == 0
-            else build_catalog(state, item_feats, n_items, multiple=item_block)
+            else build_catalog(state.item_table, item_feats, n_items, multiple=item_block)
         )
-        return _top_k_streaming(
-            state, user_feats, item_aug, user_ids, exclude_idx, k, item_block
-        )
-    item_aug = catalog if catalog is not None else build_catalog(state, item_feats, n_items)
-    return _top_k_dense(state, user_feats, item_aug, user_ids, exclude_idx, k)
+        return _top_k_streaming(u_aug, item_aug, exclude_idx, k, item_block)
+    item_aug = (catalog if catalog is not None
+                else build_catalog(state.item_table, item_feats, n_items))
+    return _top_k_dense(u_aug, item_aug, exclude_idx, k)
+
+
+def shard_rows(n_items: int, n_shards: int) -> int:
+    """Catalog rows each model rank scores in :func:`top_k_sharded`; rank m
+    scores items ``[m * blk, (m + 1) * blk)``.  When ``n_shards`` divides
+    ``n_items`` that is the ``"rows"`` split of an item table of
+    ``n_items`` rows (``parallel.mesh.plan_placement``), so a rank's own
+    rows are its block; otherwise the catalog is padded to a multiple of
+    ``128 * n_shards`` with rows that score -inf, as the JAX package pads it
+    (``lightfm_tpu/retrieval.py:226-229``)."""
+    if n_items % n_shards == 0:
+        return n_items // n_shards
+    return -(-n_items // (128 * n_shards)) * 128
+
+
+class CatalogBlock(NamedTuple):
+    """A model rank's block of the augmented catalog: items ``[start,
+    start + size)``, whose rows are padded with rows that score -inf to a
+    multiple of 128 (so the product has the shape :func:`top_k` gives it
+    on a one-rank mesh)."""
+
+    rows: torch.Tensor  # [round_up(size, 128), Wa]
+    start: int
+    size: int
+
+
+def block_of(rows: torch.Tensor, start: int) -> CatalogBlock:
+    """The :class:`CatalogBlock` of augmented catalog ``rows`` whose first
+    item is ``start`` (a copy: what ``rows`` views can go)."""
+    size = rows.shape[0]
+    padded = _pad_catalog(rows, size, 128)
+    return CatalogBlock(padded.clone() if padded is rows else padded, start, size)
+
+
+def catalog_block(catalog: torch.Tensor, n_items: int, mesh) -> CatalogBlock:
+    """This model rank's block (:func:`shard_rows`) of an augmented catalog
+    of ``n_items`` rows (:func:`build_catalog`, padded or not)."""
+    from lightfm_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    n_shards = mesh.shape[MODEL_AXIS]
+    blk = shard_rows(n_items, n_shards)
+    catalog = _pad_catalog(catalog[:n_items], n_items, blk * n_shards)
+    start = mesh.coords[MODEL_AXIS] * blk
+    return block_of(catalog[start:start + blk], start)
 
 
 def top_k_sharded(
     state,
     user_feats,
-    item_feats,
+    block: CatalogBlock,
     user_ids: torch.Tensor,
     k: int,
-    n_items: int,
     mesh,
     exclude_idx: Optional[torch.Tensor] = None,
+    user_placement=None,
 ):
     """Item-sharded top-k over a mesh's model axis
     (``lightfm_tpu/retrieval.py:201-275``).
 
-    The catalog is padded to a multiple of ``128 * n_model``; model-axis
-    rank m scores its contiguous ``1 / n_model`` of it in IEEE fp32, masks
-    the excluded ids that fall in its slice, and takes an exact local top-k
-    (the JAX package's ``method="approx"`` is served exact here, as
-    :func:`top_k` serves it).  The candidates are all-gathered over the
-    model axis and merged by one exact top-k, so the result is
-    :func:`top_k`'s; communication is O(n_model * k) a user.
+    Model-axis rank m scores its ``block`` of the augmented catalog
+    (:func:`shard_rows` gives the split, :func:`catalog_block` cuts it
+    from a whole catalog, :func:`block_of` makes it of a rank's own rows)
+    in IEEE fp32, masks the excluded ids that
+    fall in it, and takes an exact local top-k (the JAX package's
+    ``method="approx"`` is served exact here, as :func:`top_k` serves it).
+    The candidates are all-gathered over the model axis and merged by one
+    exact top-k, so the result is :func:`top_k`'s; communication is
+    O(n_model * k) a user.  Where fewer than k items score above -inf, the
+    rest of the list holds -inf scores whose ids name no item (-1), or
+    excluded items.  The users' rows are read through
+    ``user_placement``.  A collective: every rank of the model axis calls
+    it with the same users.
     """
-    from lightfm_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather_model
+    from lightfm_tpu_torch.parallel.mesh import all_gather_model
 
-    n_shards = mesh.shape[MODEL_AXIS]
-    item_aug = _pad_catalog(
-        catalog_representations(state, item_feats, n_items), n_items, 128 * n_shards
-    )
-    blk = item_aug.shape[0] // n_shards
-    start = mesh.coords[MODEL_AXIS] * blk
-    scores = _f32_dot(_user_aug(state, user_feats, user_ids), item_aug[start:start + blk].T)
+    start, size = block.start, block.size
+    u_aug = user_representations(state.user_table, user_feats, user_ids, user_placement)
+    scores = _f32_dot(u_aug, block.rows.T)  # the pad columns score -inf
+    n_cols = scores.shape[1]
     if exclude_idx is not None:
         local = torch.where(
-            (exclude_idx >= start) & (exclude_idx < start + blk), exclude_idx - start, blk,
+            (exclude_idx >= start) & (exclude_idx < start + size), exclude_idx - start, n_cols,
         )
         _mask_exclusions(scores, local)
-    s, i = torch.topk(scores, min(k, blk), dim=1)
+    s, i = torch.topk(scores, min(k, n_cols), dim=1)
+    # A pad column is a candidate only where fewer than k of the block's
+    # items score above -inf; its id must not name the next block's items.
+    i = torch.where(i < size, i + start, -1)
     # [B, k] per rank -> [n_model * k, B] gathered -> [B, n_model * k].
-    s_all, i_all = all_gather_model(mesh, s.T, (i + start).T)
+    s_all, i_all = all_gather_model(mesh, s.T, i.T)
     sg, j = torch.topk(s_all.T, k, dim=1)
     return sg, i_all.T.gather(1, j)
 
@@ -182,8 +230,9 @@ class CompressedIndex(NamedTuple):
     n_items: int
 
 
-def build_compressed_index(state, item_feats, n_items: int) -> CompressedIndex:
-    item_aug = _pad_catalog(catalog_representations(state, item_feats, n_items), n_items, 128)
+def build_compressed_index(item_table, item_feats, n_items: int) -> CompressedIndex:
+    """The index of the whole ``item_table``'s catalog."""
+    item_aug = _pad_catalog(catalog_representations(item_table, item_feats, n_items), n_items, 128)
     # Quantize a FINITE view: the -inf pad-bias sentinel would drive the
     # per-item scale to inf; pad columns are masked by index instead.
     finite = torch.where(torch.isfinite(item_aug), item_aug, torch.zeros_like(item_aug))
@@ -201,9 +250,11 @@ def top_k_compressed(
     k: int,
     exclude_idx: Optional[torch.Tensor] = None,
     rerank_mult: int = 4,
+    user_placement=None,
 ):
-    """Two-stage top-k: int8 coarse scoring + exact fp32 rerank."""
-    u_aug = _user_aug(state, user_feats, user_ids)
+    """Two-stage top-k: int8 coarse scoring + exact fp32 rerank; the users'
+    rows are read through ``user_placement``."""
+    u_aug = user_representations(state.user_table, user_feats, user_ids, user_placement)
     i_pad = index.q_items.shape[0]
 
     # Stage 1: coarse scores against the int8 catalog, scale folded in after.

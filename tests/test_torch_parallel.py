@@ -286,10 +286,13 @@ def test_top_k_sharded_on_one_rank_equals_top_k():
     uid = torch.arange(40, dtype=torch.int32)
     excl = torch.randint(0, 300, (40, 7), generator=torch.Generator().manual_seed(1))
     state, uf, itf = m._state, identity_rows(300), identity_rows(256)
+    mesh = make_mesh(device="cpu")
+    block = retrieval.catalog_block(retrieval.build_catalog(state.item_table, itf, 256), 256,
+                                    mesh)
+    assert (block.rows.shape[0], block.start, block.size) == (256, 0, 256)
     for ex in (None, excl):
         want = retrieval.top_k(state, uf, itf, uid, 10, 256, exclude_idx=ex)
-        got = retrieval.top_k_sharded(state, uf, itf, uid, 10, 256, make_mesh(device="cpu"),
-                                      exclude_idx=ex)
+        got = retrieval.top_k_sharded(state, uf, block, uid, 10, mesh, exclude_idx=ex)
         assert torch.equal(got[1], want[1])
         np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), rtol=0, atol=1e-6)
 

@@ -4,7 +4,11 @@ The counterparts of ``tests/test_sharding.py``'s partitioned cases and of
 ``lightfm_tpu/parallel/mesh.py``'s layouts: where each rank's part of a
 table lies, generic epochs on sharded tables against the JAX package's
 epochs on the same partition given the same draws, ``LightFM`` trained,
-served and checkpointed over a mesh whose tables are split.
+served and checkpointed over a mesh whose tables are split.  Serving a
+split model never assembles the user table (a wrapped
+``parallel.mesh.assemble`` records what each call asks for) and returns,
+bitwise, what the replicated-table model on the same mesh returns with the
+same state.
 
 Ranks run as gloo processes (``tests/_torch_ranks.py``; this file is their
 script), one torch thread a rank: one launch of 2 ranks (a (1, 2) mesh,
@@ -19,9 +23,15 @@ partition, ``|got - want| <= 2e-6 + 2e-5 |want|`` (the bound of
 port's replicated epoch with the same draws bitwise wherever
 ``item_alpha = user_alpha = 0`` (the lookups gather exact rows and each
 row's touches apply in the single-device order; with L2 on, the lazy-L2
-statistics sum in another order); across ranks bitwise, always.
+statistics sum in another order); across ranks bitwise, always.  Serving: bitwise the replicated-table model
+on the same mesh; against the model without a mesh, ``recommend``'s scores
+within 1e-6 (each rank scores its block of the catalog in its own product)
+and everything else bitwise; ``recommend`` against the JAX package's on
+forced CPU devices, ids equal wherever no other item scores within 1e-5
+of the same user's score (ties), scores within 1e-6 + 1e-5 |x|.
 """
 
+import contextlib
 import os
 import pickle
 import sys
@@ -48,6 +58,7 @@ if __name__ != "__main__":  # the test process; the ranks import the port alone
 import lightfm_tpu_torch
 from lightfm_tpu_torch import config, interop, train
 from lightfm_tpu_torch.evaluation import auc_score
+from lightfm_tpu_torch.ops import ranking
 from lightfm_tpu_torch.parallel import make_mesh, shard_state
 from lightfm_tpu_torch.parallel import mesh as pmesh
 from lightfm_tpu_torch.sparse import identity_rows, pad_csr
@@ -305,17 +316,80 @@ def _count_saves():
 
 
 SERVE_USERS = np.arange(0, 300, 3)
+# recommend's calls in _serving: (name, keywords); "train" stands for the
+# train matrix.
+RECOMMEND_CALLS = (
+    ("plain", {}),
+    ("excl", dict(train_interactions="train")),
+    ("exact", dict(mode="exact", train_interactions="train")),
+    ("approx", dict(mode="approx")),
+    ("compressed", dict(mode="compressed", train_interactions="train")),
+)
 
 
-def _serving(m, train_m, out, tag):
-    """Everything a user reads off a fitted model, as arrays."""
+def _hybrid_features():
+    """User and item feature matrices (identity plus 4 tags a row over 400
+    tags): 700 and 656 feature rows, both split by rows over 2 ranks."""
+    return dict(user_features=_feature_csr(300, 1, False),
+                item_features=_feature_csr(256, 2, False))
+
+
+def _record_assemble() -> list:
+    """From now on in this process, the fields of each call of
+    ``parallel.mesh.assemble``, one tuple a call."""
+    asked, real = [], pmesh.assemble
+
+    def assemble(state, placement, fields, device=None):
+        asked.append(tuple(fields))
+        return real(state, placement, fields, device)
+
+    pmesh.assemble = assemble
+    return asked
+
+
+@contextlib.contextmanager
+def _tier(name):
+    """``predict_rank``'s tiers through ``_ranks_fused`` (on the CPU, the
+    kernels' plain versions) or ``_ranks_blocked``."""
+    saved = ranking._fused_tier, ranking.FLAT_CATALOG_LIMIT
+    if name == "fused":
+        ranking._fused_tier = lambda T, device_type: T <= ranking.COUNT_T_LIMIT
+    else:
+        ranking.FLAT_CATALOG_LIMIT = 0
+    try:
+        yield
+    finally:
+        ranking._fused_tier, ranking.FLAT_CATALOG_LIMIT = saved
+
+
+def _serving(m, train_m, out, tag, feats=None, asked=None):
+    """Everything a user reads off a fitted model, as arrays.  ``feats``:
+    the fit's feature matrices.  Each serving call starts without the
+    state-dependent cache, so it builds what it reads; with ``asked`` (a
+    list that :func:`_record_assemble` fills) the fields that call asked
+    ``assemble`` for go to ``{tag}_asked_{call}``."""
+    feats = feats or {}
     pos = _positives(train_m)
-    out[f"{tag}_predict"] = m.predict(np.repeat(np.arange(30), 4), np.tile(np.arange(4), 30) * 60)
-    ranks = m.predict_rank(pos)
-    out[f"{tag}_ranks"] = ranks.data
-    out[f"{tag}_auc"] = auc_score(m, pos)
-    for kind, kw in (("plain", {}), ("excl", dict(train_interactions=train_m))):
-        s, i = m.recommend(SERVE_USERS, k=10, **kw)
+
+    def call(name, fn, *args, **kw):
+        m._drop_state_dependent_cache()
+        n0 = len(asked) if asked is not None else 0
+        result = fn(*args, **kw)
+        if asked is not None:
+            out[f"{tag}_asked_{name}"] = np.array(
+                sorted({f for fields in asked[n0:] for f in fields}), dtype=np.str_)
+        return result
+
+    out[f"{tag}_predict"] = call("predict", m.predict, np.repeat(np.arange(30), 4),
+                                 np.tile(np.arange(4), 30) * 60, **feats)
+    out[f"{tag}_ranks"] = call("ranks", m.predict_rank, pos, **feats).data
+    out[f"{tag}_auc"] = call("auc", auc_score, m, pos, **feats)
+    for tier in ("fused", "blocked"):
+        with _tier(tier):
+            out[f"{tag}_ranks_{tier}"] = call(f"ranks_{tier}", m.predict_rank, pos, **feats).data
+    for kind, kw in RECOMMEND_CALLS:
+        kw = {k: train_m if v == "train" else v for k, v in kw.items()}
+        s, i = call(f"rec_{kind}", m.recommend, SERVE_USERS, k=10, **kw, **feats)
         out[f"{tag}_rec_{kind}_s"], out[f"{tag}_rec_{kind}_i"] = s, i
     # Copies: the accessors hand out views that later edits write through.
     out[f"{tag}_item_rep_b"], out[f"{tag}_item_rep_e"] = map(np.array,
@@ -328,26 +402,42 @@ def _serving(m, train_m, out, tag):
                                                if k not in ("mesh", "random_state"))))
 
 
+def _same_state_serving(m, mesh, train_m, out, tag, feats=None):
+    """``_serving`` of two models with ``m``'s whole state: ``rep``, whose
+    tables are replicated on ``m``'s mesh, and ``one``, without a mesh."""
+    rep = pickle.loads(pickle.dumps(m))  # the whole state, no mesh
+    one = pickle.loads(pickle.dumps(m))
+    rep.mesh = mesh
+    for name, model in (("rep", rep), ("one", one)):
+        _serving(model, train_m, out, f"{tag}_{name}", feats)
+
+
 def _two_ranks(inputs, rank, tmp):
     """A (1, 2) mesh: rows and components epochs and fits, serving and
     state on the split model; a (2, 1) mesh: the replicated reference
     epochs of the (2, 2) layout."""
     out = {}
+    asked = _record_assemble()
     mesh = make_mesh(n_data=1, n_model=2, device="cpu")
     _sharded_epochs(inputs, mesh, [lay for lay in LAYOUTS if lay[1] == 1], out)
     train_m = _small_data()
     for partition in ("rows", "components"):
+        hybrid = _tm(loss="warp", mesh=mesh, table_partition=partition)
+        hybrid.fit(train_m, epochs=2, **_hybrid_features())
+        _serving(hybrid, train_m, out, f"{partition}_hybrid", _hybrid_features(), asked)
+        _same_state_serving(hybrid, mesh, train_m, out, f"{partition}_hybrid",
+                            _hybrid_features())
         m = _tm(loss="warp", mesh=mesh, table_partition=partition).fit(train_m, epochs=3)
         out[f"{partition}_local"] = np.array([m._state.item_table.shape, m._state.user_table.shape])
         out[f"{partition}_layout"] = np.str_(f"{m._placement.item.layout}/"
                                              f"{m._placement.user.layout}")
         whole = m._whole_state()
         out.update({f"{partition}_fit_{n}": x.numpy() for n, x in zip(ModelState._fields, whole)})
-        # Serving assembles the two tables alone; the optimizer fields stay parts.
-        serving = m._serving_state()
+        _serving(m, train_m, out, partition, asked=asked)
+        _same_state_serving(m, mesh, train_m, out, partition)
+        # Serving assembles the item table alone; the state stays parts.
         out[f"{partition}_serving_shapes"] = np.array(
-            [serving.item_table.shape, serving.user_table.shape, serving.item_acc.shape])
-        _serving(m, train_m, out, partition)
+            [m._serving_item_table().shape, m._state.user_table.shape, m._state.item_acc.shape])
         # A pickle carries the whole state and no mesh.
         back = pickle.loads(pickle.dumps(m))
         out[f"{partition}_pickle_equal"] = np.bool_(
@@ -383,6 +473,7 @@ def _four_ranks(inputs, rank, tmp):
     from lightfm_tpu_torch.checkpoint import load_model
 
     out = {}
+    asked = _record_assemble()
     mesh = make_mesh(n_data=2, n_model=2, device="cpu")
     _sharded_epochs(inputs, mesh, [lay for lay in LAYOUTS if lay[1] == 2], out)
     train_m = _small_data()
@@ -393,6 +484,8 @@ def _four_ranks(inputs, rank, tmp):
                 table_partition=partition).fit(train_m, epochs=5)
         out[f"trains_{partition}_auc"] = np.float64(auc_score(m, pos).mean())
         out[f"trains_{partition}_item"] = m._whole_state().item_table.numpy()
+        _serving(m, train_m, out, f"s22_{partition}", asked=asked)
+        _same_state_serving(m, mesh, train_m, out, f"s22_{partition}")
     m = _tm(loss="warp", mesh=mesh, table_partition="rows", shard_examples=True)
     m.fit(train_m, epochs=3)  # test_combined_example_and_table_sharding
     out["combined_auc"] = np.float64(auc_score(m, pos).mean())
@@ -606,7 +699,7 @@ def test_one_model_rank_pair_fit_is_bitwise_the_plain_fit(ranks, partition):
     W = table_width(10)
     want = [[128, W], [150, W]] if partition == "rows" else [[256, W // 2], [300, W // 2]]
     assert r0[f"{partition}_local"].tolist() == want
-    assert r0[f"{partition}_serving_shapes"].tolist() == [[256, W], [300, W], want[0]]
+    assert r0[f"{partition}_serving_shapes"].tolist() == [[256, W], want[1], want[0]]
     assert str(r0[f"{partition}_layout"]) == f"{partition}/{partition}"
     for name, x in zip(ModelState._fields, plain._state):
         assert np.array_equal(r0[f"{partition}_fit_{name}"], x.numpy()), name
@@ -657,12 +750,45 @@ def test_auto_table_partition_resolution(ranks, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
+def _sharded_rec_scores(key: str) -> bool:
+    """Whether ``key`` holds scores of ``recommend`` through
+    ``top_k_sharded`` (the compressed mode scores the whole catalog)."""
+    return "_rec_" in key and key.endswith("_s") and "_rec_compressed_" not in key
+
+
+def _assert_ids_equal_to_ties(got_i, want_i, want_s, tol: float, what):
+    """Top-k ids equal wherever the wanted score is more than ``tol`` from
+    its neighbours' and from the k-th score (which may swap with an item
+    just past the list)."""
+    tied = np.abs(want_s - want_s[:, -1:]) <= tol
+    near = np.abs(np.diff(want_s, axis=1)) <= tol
+    tied[:, 1:] |= near
+    tied[:, :-1] |= near
+    assert np.array_equal(got_i[~tied], want_i[~tied]), what
+
+
+# The split models whose serving the ranks recorded: (launch, tag).
+SERVED = [(0, ""), (0, "_hybrid"), (1, "s22_")]
+
+
+def _served(ranks, partition):
+    for launch, tag in SERVED:
+        yield ranks[launch], (f"{tag}{partition}" if tag.endswith("_")
+                              else f"{partition}{tag}")
+
+
 @pytest.mark.parametrize("partition", ["rows", "components"])
 def test_serving_a_split_model_equals_the_replicated_model(ranks, partition):
-    """``predict``, ``predict_rank``, ``auc_score``, ``recommend`` (through
-    ``top_k_sharded``), the representations, the state attributes and
-    ``get_params`` of the split model are those of the model without a
-    mesh whose state is the same (the fits are bitwise equal)."""
+    """``predict``, ``predict_rank`` (the flat, fused and blocked tiers),
+    ``auc_score``, ``recommend`` (through ``top_k_sharded``, with and
+    without exclusions, and compressed), the representations, the state
+    attributes and ``get_params`` of the split model are those of the model
+    without a mesh whose state is the same (the fits are bitwise equal).
+    For the identity and hybrid fits on (1, 2) and the fit on (2, 2), every
+    serving call is bitwise that of the replicated-table model on the same
+    mesh with the same state, and that of the model without a mesh
+    (``recommend``'s ids there to ties within its scores' 1e-6: the mesh
+    scores each half of the catalog in its own product)."""
     r0 = ranks[0][0]
     train_m = _small_data()
     plain = _tm(loss="warp", table_partition=partition).fit(train_m, epochs=3)
@@ -670,10 +796,130 @@ def test_serving_a_split_model_equals_the_replicated_model(ranks, partition):
     _serving(plain, train_m, want, "x")
     for key, value in want.items():
         got = r0[f"{partition}{key[1:]}"]
-        if key.endswith("_rec_plain_s") or key.endswith("_rec_excl_s"):
+        if _sharded_rec_scores(key):
             np.testing.assert_allclose(got, value, rtol=0, atol=1e-6)
         else:
             assert np.array_equal(got, value), key
+    for outs, tag in _served(ranks, partition):
+        for key in want:
+            name = key[len("x_"):]
+            got = outs[0][f"{tag}_{name}"]
+            assert np.array_equal(got, outs[0][f"{tag}_rep_{name}"]), (tag, name, "same mesh")
+            one = outs[0][f"{tag}_one_{name}"]
+            if _sharded_rec_scores(key):
+                np.testing.assert_allclose(got, one, rtol=0, atol=1e-6)
+            elif _sharded_rec_scores(key[:-1] + "s"):
+                _assert_ids_equal_to_ties(got, one, outs[0][f"{tag}_one_{name[:-1]}s"], 1e-6,
+                                          (tag, name, "no mesh"))
+            else:
+                assert np.array_equal(got, one), (tag, name, "no mesh")
+
+
+@pytest.mark.parametrize("partition", ["rows", "components"])
+def test_split_serving_never_assembles_the_user_table(ranks, partition):
+    """No serving call of a split model asks ``parallel.mesh.assemble`` for
+    the user table: ``predict`` asks for nothing, ``predict_rank``, the
+    metrics and the compressed ``recommend`` for the item table, and the
+    other ``recommend`` modes for nothing under ``"rows"`` with identity
+    item features (each rank scores its own rows), else for the item
+    table."""
+    for outs, tag in _served(ranks, partition):
+        prefix = f"{tag}_asked_"
+        own_rows = partition == "rows" and "hybrid" not in tag
+        for r in outs:
+            asked = {k[len(prefix):]: set(v.tolist()) for k, v in r.items()
+                     if k.startswith(prefix)}
+            assert len(asked) == 5 + len(RECOMMEND_CALLS), (tag, sorted(asked))
+            assert asked.pop("predict") == set(), tag
+            for kind in ("plain", "excl", "exact", "approx"):
+                assert asked.pop(f"rec_{kind}") == (set() if own_rows else {"item_table"}), (tag,
+                                                                                           kind)
+            for call, fields in asked.items():
+                assert fields == {"item_table"}, (tag, call)
+
+
+@pytest.mark.parametrize("partition", ["rows", "components"])
+def test_split_recommend_is_bitwise_the_replicated_model_and_jax_to_ties(ranks, partition):
+    """``recommend`` on the split (1, 2) model: bitwise the replicated-table
+    model on the same mesh, every mode; and the JAX package's
+    ``recommend`` over a (1, 2) mesh of forced CPU devices with the same
+    state, ids equal except where another item scores within 1e-5 (a
+    tie, by float64 scores of the state), scores within 1e-6 + 1e-5|x|."""
+    r0 = ranks[0][0]
+    for kind, _ in RECOMMEND_CALLS:
+        for part in ("s", "i"):
+            key = f"rec_{kind}_{part}"
+            assert np.array_equal(r0[f"{partition}_{key}"], r0[f"{partition}_rep_{key}"]), key
+    whole = {n: r0[f"{partition}_fit_{n}"] for n in JaxState._fields}
+    jmesh = jax_parallel.make_mesh(n_data=1, n_model=2, devices=jax.devices()[:2])
+    jm = lightfm_tpu.LightFM(loss="warp", mesh=jmesh)
+    jm._state = JaxState(**{n: jnp.asarray(v) for n, v in whole.items()})
+    u = whole["user_table"][SERVE_USERS].astype(np.float64)
+    it = whole["item_table"].astype(np.float64)
+    exact = u[:, :-1] @ it[:, :-1].T + u[:, -1:] + it[None, :, -1]
+    train_m = _small_data()
+    for kind, kw in (("plain", {}), ("excl", dict(train_interactions=train_m))):
+        want_s, want_i = map(np.asarray, jm.recommend(SERVE_USERS, k=10, **kw))
+        got_s, got_i = r0[f"{partition}_rec_{kind}_s"], r0[f"{partition}_rec_{kind}_i"]
+        np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
+        scores = exact.copy()
+        if kw:
+            scores[train_m.tocsr()[SERVE_USERS].toarray() != 0] = -np.inf
+        picked = np.take_along_axis(scores, want_i.astype(np.int64), axis=1)
+        tied = (np.abs(scores[:, None, :] - picked[:, :, None]) <= 1e-5).sum(-1) > 1
+        assert np.array_equal(got_i[~tied], want_i[~tied]), kind
+        assert tied.mean() < 0.1, ("the ties leave too little to compare", kind, tied.mean())
+
+
+@pytest.mark.parametrize("n_items", [256, 300, 301])
+@pytest.mark.parametrize("n_model", [1, 2, 4])
+def test_catalog_blocks_tile_the_catalog(n_items, n_model):
+    """``retrieval.catalog_block``: model rank m scores items ``[m I/n,
+    (m+1) I/n)`` when n divides I (a rows split's own rows, which
+    ``block_of`` turns into the same block), else the JAX package's split
+    of the catalog padded to a multiple of 128 n; each block's rows are
+    padded to a multiple of 128 with rows that score -inf."""
+    from lightfm_tpu_torch import retrieval
+
+    aug = torch.randn(n_items, 9)
+    aug[:, -1] = 1.0
+    catalog = retrieval.build_catalog(aug[:, :-1].contiguous(), identity_rows(n_items), n_items)
+    blocks = [retrieval.catalog_block(catalog, n_items, pmesh.Mesh(1, n_model, m, "cpu"))
+              for m in range(n_model)]
+    size = n_items // n_model if n_items % n_model == 0 else -(-n_items // (128 * n_model)) * 128
+    whole = torch.cat([b.rows[:b.size] for b in blocks])
+    assert [(b.start, b.size) for b in blocks] == [(m * size, size) for m in range(n_model)]
+    assert torch.equal(whole[:n_items], catalog[:n_items])
+    assert (whole[n_items:, -2] == -np.inf).all()
+    for b in blocks:
+        assert b.rows.shape[0] % 128 == 0 and (b.rows[b.size:, -2] == -np.inf).all()
+    if n_items % n_model == 0:
+        own = retrieval.block_of(catalog[size:2 * size] if n_model > 1 else catalog[:n_items],
+                                 size if n_model > 1 else 0)
+        assert torch.equal(own.rows, blocks[min(1, n_model - 1)].rows)
+
+
+def test_pad_candidates_of_a_block_name_no_item():
+    """A block of 150 items padded to 256 rows, 147 of them excluded: the
+    3 left win, and the other candidates score -inf with ids that name an
+    excluded item or -1, never an item of the next block."""
+    from types import SimpleNamespace
+
+    from lightfm_tpu_torch import retrieval
+
+    gen = torch.Generator().manual_seed(2)
+    items, users = torch.randn(300, 8, generator=gen), torch.randn(4, 8, generator=gen)
+    catalog = retrieval.build_catalog(items, identity_rows(300), 300)
+    block = retrieval.catalog_block(catalog, 300, pmesh.Mesh(1, 2, 0, "cpu"))
+    assert (block.rows.shape[0], block.start, block.size) == (256, 0, 150)
+    excl = torch.arange(3, 150).repeat(4, 1)
+    s, i = retrieval.top_k_sharded(SimpleNamespace(user_table=users), None, block,
+                                   torch.arange(4), 10, pmesh.Mesh(1, 2, 0, "cpu"),
+                                   exclude_idx=excl)
+    assert torch.equal(i[:, :3].sort(1).values, torch.arange(3).repeat(4, 1))
+    assert torch.isfinite(s[:, :3]).all() and (s[:, 3:] == -np.inf).all()
+    rest = i[:, 3:]
+    assert ((rest == -1) | ((rest >= 3) & (rest < 150))).all()
 
 
 @pytest.mark.parametrize("partition", ["rows", "components"])
