@@ -66,8 +66,18 @@ model's and the replicated-table model's on the same mesh; then
 (c) four gloo ranks on a (2, 2) mesh train the quickstart size by rows with
 example-sharded input and the local shuffle, checkpointing every 10
 epochs, and the last checkpoint loads in this process as the assembled
-state.  One card shows correctness only: gloo moves every collective
-through the host.  Any failed check raises, so the exit code is non-zero;
+state.  Gloo shows correctness only: it moves every collective through the
+host.  Phases 10 and 11 put each child rank on its own card where the
+machine has enough, else on cuda:0.  Phase 12 runs where the machine has
+two cards or more (on one it logs that it needs two): one NCCL rank a
+card, n = 2 or 4, (a) the data-parallel 5M fit of 2 epochs through K1,
+bitwise the same fit under gloo on the same cards, with ``recommend``
+through ``top_k_sharded``; (b) rows and (c) components on (1, n) as phase
+11's (a) and (b), through K2 and ``pair_scores``; (d) at n = 4 phase 11's
+(c), its checkpoint loaded into a one-device model bitwise; each rank
+times its collectives with CUDA events, and the phase logs the cards'
+topology and the compute processes on each card.  Any failed check raises,
+so the exit code is non-zero;
 the last stdout line is the device record, the line before it the
 per-kernel record.
 
@@ -2333,9 +2343,10 @@ def data_path(torch, seed: int) -> None:
 
 
 # Phase 10: multi-device, in child processes (a process group lives in them
-# only).  (a) one NCCL rank; (b) two gloo ranks sharing cuda:0.  One card
-# shows correctness only: NCCL will not put two ranks on one device, and
-# gloo moves every collective through the host over loopback.
+# only).  (a) one NCCL rank; (b) two gloo ranks, each on its own card where
+# the machine has two (rank_card), else sharing cuda:0.  Correctness only:
+# gloo moves every collective through the host over loopback; phase 12
+# runs NCCL across cards.
 MESH_NCCL_EPOCHS = 2
 MESH_GLOO_EPOCHS = 3
 MESH_AUC_BAND = 0.005  # (b): train-sample AUC against the one-device fit
@@ -2344,6 +2355,92 @@ MESH_STATE_SHARE = 0.99  # (b): share of entries within that bound after 3 epoch
 MESH_REC_USERS = 2048
 MESH_CHILD_TIMEOUT_S = 480
 MESH_PG_TIMEOUT_S = 300
+RANK_GRACE_S = 15  # after a rank fails, how long the others may take to fail too
+
+
+def rank_card(rank: int, n_cards: int) -> int:
+    """The card a child rank of this script sits on (``LOCAL_RANK``): its
+    own where the machine has a card a rank, else the cards in turn (gloo
+    ranks only: NCCL refuses two ranks on one card)."""
+    return rank % n_cards
+
+
+def _where(world: int, n_cards: int) -> str:
+    """How ``world`` child ranks sit on this machine's cards, for the logs."""
+    cards = [rank_card(r, n_cards) for r in range(world)]
+    if len(set(cards)) == 1:
+        return f"sharing cuda:{cards[0]}"
+    return "on " + ", ".join(f"cuda:{c}" for c in cards)
+
+
+class CollectiveClock:
+    """CUDA events on the current stream around every call of
+    ``parallel.mesh._collective`` in this process, with the bytes of the
+    rank's block.  Under NCCL the collective runs on NCCL's own stream,
+    which waits for the current stream before it starts, and the current
+    stream waits for it after, so the events hold its device time (with
+    any wait for a slower peer); ``Mesh.stats`` seconds are only the host's
+    enqueue there."""
+
+    def __init__(self, torch):
+        from lightfm_tpu_torch.parallel import mesh as pmesh
+
+        self.torch, self.calls = torch, []
+        real = pmesh._collective
+
+        def timed(mesh, block, op):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(mesh, block, op)
+            stop.record()
+            self.calls.append((isinstance(out, list) and len(out), block.numel() * block.element_size(),
+                               start, stop))
+            return out
+
+        pmesh._collective = timed
+
+    def take(self) -> dict:
+        """The calls since the last ``take``, by kind: calls, MB of the
+        rank's blocks, device ms (summed and the median call), and bus
+        GB/s, NCCL's measure: an all-gather of n blocks moves (n - 1)
+        blocks into each rank, a broadcast one; over all the calls (waits
+        for a slower rank included), and the median call's."""
+        self.torch.cuda.synchronize()
+        kinds = {}
+        for n, size, start, stop in self.calls:
+            kind = "all_gather" if n else "broadcast"
+            r = kinds.setdefault(kind, {"calls": 0, "block_mb": 0.0, "bus_mb": 0.0, "ms": [],
+                                        "rates": []})
+            ms, bus_mb = start.elapsed_time(stop), (n - 1 if n else 1) * size / 1e6
+            r["calls"] += 1
+            r["block_mb"] += size / 1e6
+            r["bus_mb"] += bus_mb
+            r["ms"].append(ms)
+            r["rates"].append(bus_mb / ms if ms > 0 else 0.0)  # MB/ms
+        self.calls = []
+        for r in kinds.values():
+            times, r["ms"] = r["ms"], float(sum(r["ms"]))
+            r["median_ms"] = float(np.median(times))
+            r["bus_gb_s"] = r["bus_mb"] / r["ms"] if r["ms"] > 0 else None
+            r["median_bus_gb_s"] = float(np.median(r.pop("rates")))
+        return kinds
+
+
+_CLOCK = None  # a child's CollectiveClock (mesh_rank_main)
+
+
+def _collectives() -> dict:
+    """The child's collectives since the last call (``CollectiveClock.take``)."""
+    return _CLOCK.take() if _CLOCK is not None else {}
+
+
+def _card_words(kinds: dict) -> str:
+    return "; ".join(
+        f"{kind} {r['calls']} calls, {r['block_mb']:.3f} MB of blocks, {r['ms']:.3f} ms "
+        f"(median {r['median_ms']:.4f}), bus {r['bus_gb_s'] or 0:.2f} GB/s (median call "
+        f"{r['median_bus_gb_s']:.2f})"
+        for kind, r in sorted(kinds.items())) or "none"
 
 
 def _free_port() -> int:
@@ -2377,15 +2474,18 @@ def _within(torch, got, want, rtol: float, atol: float):
 def _mesh_fit(torch, model, mesh, coo, epochs: int, **fit_kw):
     """``model.fit`` over ``mesh`` with the launch counts from 0 and CUDA
     events around each epoch; the collectives' host-clock time and bytes
-    per step."""
+    per step, and their device times (``CollectiveClock``, placement's
+    broadcasts included)."""
     from lightfm_tpu_torch import train
 
     spans = Spans(torch)
     mesh.reset_stats()
+    _collectives()
     with spans.patch([(train, "_epoch", "epoch")]):
         torch.cuda.synchronize()
         _, launches = counted_all(model.fit, coo, epochs=epochs, **fit_kw)
     torch.cuda.synchronize()
+    device = _collectives()
     steps = model._staged_train_data.packed.shape[1] * (
         mesh.shape["data"] if model._staged_train_data.examples_sharded else 1
     ) // model._staged_batch_size * epochs
@@ -2394,7 +2494,7 @@ def _mesh_fit(torch, model, mesh, coo, epochs: int, **fit_kw):
         "collective_ms_per_step": mesh.stats["seconds"] * 1e3 / steps,
         "collective_calls_per_step": mesh.stats["calls"] / steps,
         "bytes_per_step": mesh.stats["bytes"] / steps,
-        "steps": steps, "launches": launches,
+        "steps": steps, "launches": launches, "collectives": device,
     }
 
 
@@ -2406,7 +2506,7 @@ def mesh_nccl_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     from lightfm_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(n_data=1)
-    check(mesh.device == torch.device("cuda", 0), f"the rank sits on {mesh.device}")
+    _check_card(torch, mesh, rank)
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
 
     def model(**kw):
@@ -2432,7 +2532,7 @@ def mesh_nccl_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
 
 
 def mesh_gloo_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
-    """(b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=2)``: the 5M
+    """(b) Two gloo ranks (``_where``), ``make_mesh(n_data=2)``: the 5M
     fit of 3 epochs (a rank's slice 65,536 examples, 4 pools), replicas
     bitwise equal, one step within the CPU tests' bound of the one-device
     step, the fit's train-sample AUC within MESH_AUC_BAND of the one-device
@@ -2445,7 +2545,7 @@ def mesh_gloo_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     from lightfm_tpu_torch.state import ModelState
 
     mesh = make_mesh(n_data=2)
-    check(mesh.device == torch.device("cuda", 0), f"rank {rank} sits on {mesh.device}")
+    _check_card(torch, mesh, rank)
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
     csr = coo.tocsr()
 
@@ -2524,17 +2624,25 @@ def mesh_gloo_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
 
 
 def mesh_rank_main(torch, args) -> int:
-    """A child of phase 10 or 11: join the process group, run this rank's
-    part, write its record, leave the group."""
+    """A child of phase 10, 11 or 12: bind its card, join the process group,
+    run this rank's part with its collectives timed, write its record,
+    leave the group."""
     import torch.distributed as dist
 
     from lightfm_tpu_torch.parallel import initialize_multihost
 
+    global _CLOCK
+    card = rank_card(args.rank, torch.cuda.device_count())
+    if args.mesh_rank == "gloo":  # initialize_multihost binds NCCL ranks only
+        torch.cuda.set_device(card)
     initialize_multihost(backend=args.mesh_rank, init_method=f"tcp://localhost:{args.port}",
-                         world_size=args.world, rank=args.rank, timeout_s=MESH_PG_TIMEOUT_S)
+                         world_size=args.world, rank=args.rank, timeout_s=args.pg_timeout)
     try:
+        check(torch.cuda.current_device() == card,
+              f"{args.mesh_rank} rank {args.rank} is bound to cuda:{card}")
+        _CLOCK = CollectiveClock(torch)
         part = {"mesh": mesh_nccl_rank if args.mesh_rank == "nccl" else mesh_gloo_rank,
-                "split": split_rank, "split22": split22_rank}[args.part]
+                "split": split_rank, "split22": split22_rank, "cards": cards_rank}[args.part]
         out = part(torch, args.seed, args.rank, args.out)
         with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
             json.dump(out, f)
@@ -2543,31 +2651,55 @@ def mesh_rank_main(torch, args) -> int:
     return 0
 
 
-def run_ranks(backend: str, world: int, seed: int, out_dir: str, part: str = "mesh") -> list:
+def run_ranks(torch, backend: str, world: int, seed: int, out_dir: str, part: str = "mesh",
+              timeout_s: float = MESH_CHILD_TIMEOUT_S,
+              pg_timeout_s: float = MESH_PG_TIMEOUT_S) -> list:
     """Start ``world`` ranks of this script as children running ``part``
-    (``mesh``: phase 10's; ``split``, ``split22``: phase 11's), wait for
-    them with a deadline (killing all of them past it), log their output,
-    and return their records; a child that fails fails the phase."""
+    (``mesh``: phase 10's; ``split``, ``split22``: phase 11's and 12's;
+    ``cards``: phase 12's), rank r on ``cuda:rank_card(r)`` (its
+    ``LOCAL_RANK``), each with its output in ``out_dir``; wait for them with
+    a deadline, and once one fails, ``RANK_GRACE_S`` for the rest (then
+    kill every one still running: an NCCL rank may wait on a dead peer
+    until its group's timeout); log their output, and return their
+    records.  A child that fails fails the phase."""
+    n_cards = torch.cuda.device_count()
     cmd = [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--mesh-rank", backend,
-           "--world", str(world), "--port", str(_free_port()), "--out", out_dir, "--part", part]
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=os.path.dirname(os.path.abspath(__file__)),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    deadline = time.monotonic() + MESH_CHILD_TIMEOUT_S
-    logs = []
+           "--world", str(world), "--port", str(_free_port()), "--out", out_dir, "--part", part,
+           "--pg-timeout", str(pg_timeout_s)]
+    procs, paths = [], []
+    for r in range(world):
+        env = {**os.environ, "LOCAL_RANK": str(rank_card(r, n_cards))}
+        if backend == "nccl":
+            env.setdefault("NCCL_DEBUG", "WARN")
+        paths.append(os.path.join(out_dir, f"rank{r}.log"))
+        with open(paths[-1], "w") as fh:
+            procs.append(subprocess.Popen(cmd + ["--rank", str(r)], env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT,
+                                          cwd=os.path.dirname(os.path.abspath(__file__))))
+    deadline, failed_at = time.monotonic() + timeout_s, None
     try:
+        while None in [p.poll() for p in procs]:  # every child polled, each round
+            now = time.monotonic()
+            if failed_at is None and any(p.returncode not in (None, 0) for p in procs):
+                failed_at = now
+            if now > deadline or (failed_at is not None and now > failed_at + RANK_GRACE_S):
+                break
+            time.sleep(0.1)
+    finally:
+        running = [r for r, p in enumerate(procs) if p.poll() is None]
         for p in procs:
-            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
-            p.communicate()
-        raise AssertionError(f"{part} ({backend}): a rank outlived {MESH_CHILD_TIMEOUT_S} s")
-    for r, text in enumerate(logs):
-        for line in text.splitlines():
-            log(f"    [{part} {backend} rank {r}] {line}")
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, path in enumerate(paths):
+        with open(path) as fh:
+            for line in fh.read().splitlines():
+                log(f"    [{part} {backend} rank {r}] {line}")
+    if running and failed_at is None:
+        raise AssertionError(f"{part} ({backend}): rank(s) {running} outlived {timeout_s} s")
     check(all(p.returncode == 0 for p in procs),
-          f"{part} {backend}: {world} rank(s) exited 0 ({[p.returncode for p in procs]})")
+          f"{part} {backend}: {world} rank(s) exited 0 ({[p.returncode for p in procs]}"
+          f"{'; killed after a rank failed: ' + str(running) if running else ''})")
     outs = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
@@ -2586,17 +2718,18 @@ def mesh_path(torch, seed: int) -> dict:
     t_phase = time.perf_counter()
     _build.build_all()  # built by phase 1; the children only load the libraries
     torch.cuda.empty_cache()
-    log(f"phase 10: multi-device. (a) one NCCL rank, (b) two gloo ranks sharing cuda:0; "
-        f"{TRAIN_USERS} users x {TRAIN_ITEMS} items, D={D}, batch {TRAIN_BATCH}")
+    log(f"phase 10: multi-device. (a) one NCCL rank, (b) two gloo ranks "
+        f"{_where(2, torch.cuda.device_count())}; {TRAIN_USERS} users x {TRAIN_ITEMS} items, "
+        f"D={D}, batch {TRAIN_BATCH}")
     card = nvidia_smi("name,power.limit")
     with tempfile.TemporaryDirectory() as tmp:
         os.makedirs(os.path.join(tmp, "a"))
         os.makedirs(os.path.join(tmp, "b"))
         t0 = time.perf_counter()
-        (a,) = run_ranks("nccl", 1, seed, os.path.join(tmp, "a"))
+        (a,) = run_ranks(torch, "nccl", 1, seed, os.path.join(tmp, "a"))
         secs_a = time.perf_counter() - t0
         t0 = time.perf_counter()
-        b = run_ranks("gloo", 2, seed, os.path.join(tmp, "b"))
+        b = run_ranks(torch, "gloo", 2, seed, os.path.join(tmp, "b"))
         secs_b = time.perf_counter() - t0
     log(f"  (a) NCCL, 1 rank ({card}): epoch ms (CUDA events) {json.dumps(a['epoch_ms'])}; "
         f"host enqueue of its collectives {a['collective_ms_per_step']:.4f} ms a step (host "
@@ -2634,9 +2767,11 @@ def mesh_path(torch, seed: int) -> dict:
 
 
 # Phase 11: row and component table partitions, in child processes as phase
-# 10.  (a), (b): two gloo ranks sharing cuda:0, a (1, 2) mesh at
-# synth-5m-warp-d64's widths; (c) four gloo ranks, a (2, 2) mesh at the
-# quickstart size.  One card shows correctness and bytes, not NVLink speed.
+# 10.  (a), (b): two gloo ranks, a (1, 2) mesh at synth-5m-warp-d64's
+# widths; (c) four gloo ranks, a (2, 2) mesh at the quickstart size; each
+# rank on its own card where the machine has enough, else sharing them.
+# Gloo shows correctness and bytes, not NVLink speed; phase 12 runs the
+# same parts under NCCL across cards.
 SPLIT_STEPS = 4  # depth cut: one epoch of 4 x TRAIN_BATCH interactions
 SPLIT_RANK_USERS = 2048
 SPLIT_CKPT_EVERY = 10
@@ -2699,9 +2834,10 @@ def record_assemble() -> list:
 
 
 def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
-    """(a), (b) Two gloo ranks sharing cuda:0, ``make_mesh(n_data=1,
-    n_model=2)``: one generic epoch at full width with the tables split by
-    rows, then by components; each rank holds half of each table, the
+    """(a), (b) n ranks (phase 11: two gloo ranks; phase 12: NCCL, one a
+    card), ``make_mesh(n_data=1, n_model=n)``: one generic epoch at full
+    width with the tables split by rows, then by components; each rank
+    holds 1/n of each table, the
     assembled state is the one-device ``fast_path="off"`` fit's (bitwise
     expected), ``predict_rank`` for 2,048 users goes through K2 and
     ``pair_scores`` and equals the one-device model's, ``recommend`` over
@@ -2710,14 +2846,17 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     model's.  No serving call assembles the user table, and under rows
     ``recommend`` and ``predict`` assemble nothing.  Logs each rank's peak
     bytes on the card while placing and fitting, and for each serving call
-    its peak bytes and the bytes it sent."""
+    its peak bytes, the bytes it sent and its collectives' device times."""
     import pickle
+
+    import torch.distributed as dist
 
     from lightfm_tpu_torch import LightFM
     from lightfm_tpu_torch.state import ModelState, table_width
 
     asked = record_assemble()
-    mesh = _card_mesh(torch, rank, n_data=1, n_model=2)
+    n = dist.get_world_size()
+    mesh = _card_mesh(torch, rank, n_data=1, n_model=n)
     coo = split_interactions(seed)
     csr = coo.tocsr()
     users = np.random.RandomState(seed + 1).choice(TRAIN_USERS, SPLIT_RANK_USERS, replace=False)
@@ -2740,8 +2879,8 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
         one_host = ModelState(*(x.cpu() for x in one._state))
     W = table_width(D)
     for partition, item_part, user_part in (
-        ("rows", (TRAIN_ITEMS // 2, W), (TRAIN_USERS // 2, W)),
-        ("components", (TRAIN_ITEMS, W // 2), (TRAIN_USERS, W // 2)),
+        ("rows", (TRAIN_ITEMS // n, W), (TRAIN_USERS // n, W)),
+        ("components", (TRAIN_ITEMS, W // n), (TRAIN_USERS, W // n)),
     ):
         m = model(mesh=mesh, table_partition=partition)
         rec, peaks = _fit_peaks(torch, _mesh_fit, torch, m, mesh, coo, 1)
@@ -2767,6 +2906,7 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
             held = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             mesh.reset_stats()
+            _collectives()
             n0 = len(asked)
             t0 = time.perf_counter()
             result, launches = counted_all(fn, *args, **kwargs)
@@ -2775,7 +2915,7 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
             rec["serve"][name] = {
                 "peak": torch.cuda.max_memory_allocated() - held, "sent": mesh.stats["bytes"],
                 "collectives": mesh.stats["calls"], "s": time.perf_counter() - t0,
-                "asked": fields,
+                "asked": fields, "device": _collectives(),
                 "launches": {k: launches[k] for k in ("rank_counts", "pair_scores")},
             }
             check("user_table" not in fields, f"{partition}: {name} on the split model "
@@ -2836,11 +2976,11 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
 
 
 def split22_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
-    """(c) Four gloo ranks sharing cuda:0, ``make_mesh(n_data=2,
-    n_model=2)``, at the quickstart size: rows, example-sharded input, the
-    local shuffle, FIT_EPOCHS epochs with a checkpoint every
-    SPLIT_CKPT_EVERY; the 943-row user table warns and stays whole, the
-    item table splits 841 / 841, the fit trains."""
+    """(c) Four ranks (phase 11: gloo; phase 12: NCCL, one a card),
+    ``make_mesh(n_data=2, n_model=2)``, at the quickstart size: rows,
+    example-sharded input, the local shuffle, FIT_EPOCHS epochs with a
+    checkpoint every SPLIT_CKPT_EVERY; the 943-row user table warns and
+    stays whole, the item table splits 841 / 841, the fit trains."""
     import warnings
 
     from lightfm_tpu_torch import LightFM
@@ -2869,47 +3009,34 @@ def split22_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
     return out
 
 
+def _check_card(torch, mesh, rank: int) -> None:
+    """The rank's mesh sits on the rank's own card (``rank_card``; cuda:0
+    on a machine with one), which is also its current device."""
+    card = torch.device("cuda", rank_card(rank, torch.cuda.device_count()))
+    check(mesh.device == card and torch.cuda.current_device() == card.index,
+          f"rank {rank} sits on {mesh.device}, its card, bound as the current device")
+
+
 def _card_mesh(torch, rank: int, n_data: int, n_model: int):
     from lightfm_tpu_torch.parallel import make_mesh
 
     mesh = make_mesh(n_data=n_data, n_model=n_model)
-    check(mesh.device == torch.device("cuda", 0), f"rank {rank} sits on {mesh.device}")
+    _check_card(torch, mesh, rank)
     return mesh
 
 
-def split_path(torch, seed: int) -> dict:
-    """Phase 11: row and component table partitions over ``torch.distributed``,
-    in child processes.  Returns each rank's K2 and ``pair_scores`` launch
-    counts of its ``predict_rank`` on a split model."""
-    import hashlib
-    import tempfile
-
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    log(f"phase 11: split tables. (a) rows, (b) components on a (1, 2) mesh of two gloo ranks "
-        f"sharing cuda:0, {TRAIN_USERS} users x {TRAIN_ITEMS} items, D={D}, batch {TRAIN_BATCH}, "
-        f"{SPLIT_STEPS} steps; (c) rows on a (2, 2) mesh of four, the quickstart size")
-    card = nvidia_smi("name,power.limit")
-    with tempfile.TemporaryDirectory() as tmp:
-        for sub in ("ab", "c"):
-            os.makedirs(os.path.join(tmp, sub))
-        t0 = time.perf_counter()
-        ab = run_ranks("gloo", 2, seed, os.path.join(tmp, "ab"), part="split")
-        secs_ab = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        c = run_ranks("gloo", 4, seed, os.path.join(tmp, "c"), part="split22")
-        secs_c = time.perf_counter() - t0
-        # The file's state arrays as they are: load_model, as the JAX
-        # package's, refuses a locally shuffled model's file without a mesh.
-        with np.load(os.path.join(tmp, "c", "quickstart.npz")) as z:
-            saved = {n: hashlib.sha256(z[f"state_{n}"].tobytes()).hexdigest()
-                     for n in c[0]["digests"]}
-        check(saved == c[0]["digests"], "(c) the last checkpoint holds the assembled state")
+def report_split(ab: list, card: str, backend: str, labels=("a", "b")) -> None:
+    """Log and check the records of ``split_rank``'s n ranks: per rank and
+    layout the epoch, the collectives (host clock; under NCCL also their
+    device time), state and peak bytes, and each serving call; the card
+    never held the whole state while placing, each split fit peaks below
+    the one-device fit, and the ranks' assembled states are bitwise equal."""
+    note = ("gloo moves every collective through the host over loopback" if backend == "gloo"
+            else "NCCL, one rank a card")
     for r, rec in enumerate(ab):
-        for partition in ("rows", "components"):
+        for label, partition in zip(labels, ("rows", "components")):
             x = rec[partition]
-            log(f"  ({'a' if partition == 'rows' else 'b'}) {partition}, gloo rank {r} ({card}; "
-                f"gloo moves every collective through the host over loopback): epoch ms (CUDA "
+            log(f"  ({label}) {partition}, {backend} rank {r} ({card}; {note}): epoch ms (CUDA "
                 f"events) {json.dumps(x['epoch_ms'])}; collectives "
                 f"{x['collective_ms_per_step']:.3f} ms a step (host clock), "
                 f"{x['collective_calls_per_step']:.1f} calls, {x['bytes_per_step'] / 1e6:.3f} MB "
@@ -2917,12 +3044,16 @@ def split_path(torch, seed: int) -> dict:
                 f"{x['whole_bytes'] / 1e6:.3f} MB whole; peak MB above the rank's prior "
                 f"allocation: placing {x['peaks']['placed'] / 1e6:.3f}, fitting "
                 f"{x['peaks']['fit'] / 1e6:.3f}")
+            if backend == "nccl":
+                log(f"    the fit's collectives (CUDA events, placement included): "
+                    f"{_card_words(x['collectives'])}")
             log(f"    serving, each call from a cold cache ({x['serve_s']:.2f} s of the phase "
                 "with the checks): " + "; ".join(
                     f"{name} peak {c['peak'] / 1e6:.3f} MB above the prior allocation, "
                     f"{c['sent'] / 1e6:.3f} MB sent in {c['collectives']} collectives, "
                     f"{c['s'] * 1e3:.1f} ms (host clock), assembled "
                     f"{'/'.join(c['asked']) or 'nothing'}, launches {json.dumps(c['launches'])}"
+                    + (f", device {_card_words(c['device'])}" if backend == "nccl" else "")
                     for name, c in x["serve"].items()))
     one_peaks = ab[0]["one_peaks"]
     log(f"  one device, no mesh ({card}): peak MB placing {one_peaks['placed'] / 1e6:.3f}, "
@@ -2937,18 +3068,107 @@ def split_path(torch, seed: int) -> dict:
             check(x["peaks"]["fit"] < one_peaks["fit"],
                   f"{partition}, rank {r}: the split fit's peak is below the one-device fit's "
                   f"({x['peaks']['fit'] / 1e6:.3f} < {one_peaks['fit'] / 1e6:.3f} MB)")
+    for label, partition in zip(labels, ("rows", "components")):
+        check(all(rec[partition]["digests"] == ab[0][partition]["digests"] for rec in ab),
+              f"({label}) {partition}: the {len(ab)} ranks' assembled states are bitwise equal")
+
+
+def report_split22(c: list, card: str, backend: str, label: str) -> None:
+    """Log and check the records of ``split22_rank``'s four ranks."""
     for r, rec in enumerate(c):
-        log(f"  (c) gloo rank {r} ({card}): {FIT_EPOCHS} epochs, median "
+        log(f"  ({label}) {backend} rank {r} ({card}): {FIT_EPOCHS} epochs, median "
             f"{float(np.median(rec['epoch_ms'])):.3f} ms (CUDA events), collectives "
             f"{rec['collective_ms_per_step']:.3f} ms a step (host clock), "
             f"{rec['collective_calls_per_step']:.1f} calls, {rec['bytes_per_step'] / 1e6:.4f} MB "
             f"sent a step; state {rec['state_bytes'] / 1e6:.4f} MB on the rank; AUC "
             f"{rec['auc']:.4f}")
-    for partition in ("rows", "components"):
-        check(ab[0][partition]["digests"] == ab[1][partition]["digests"],
-              f"(a, b) {partition}: the two ranks' assembled states are bitwise equal")
+        if backend == "nccl":
+            log(f"    the fit's collectives (CUDA events): {_card_words(rec['collectives'])}")
     check(all(rec["digests"] == c[0]["digests"] for rec in c),
-          "(c) the four ranks' assembled states are bitwise equal")
+          f"({label}) the four ranks' assembled states are bitwise equal")
+
+
+def checkpoint_one_device(torch, path: str, rec: dict, seed: int, label: str) -> None:
+    """``split22_rank``'s last checkpoint loaded into a one-device model on
+    this process's card: its state bitwise the ranks' assembled state, and
+    its train AUC theirs.  The state arrays go in through
+    ``interop.state_from_numpy``: ``load_model``, as the JAX package's,
+    refuses a locally shuffled model's file without a mesh."""
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.interop import state_from_numpy
+    from lightfm_tpu_torch.state import ModelState
+
+    with np.load(path) as z:
+        arrays = {n: z[f"state_{n}"] for n in ModelState._fields}
+    one = LightFM(loss="warp", no_components=FIT_D, random_state=seed)
+    one._state = state_from_numpy(arrays, one._device)
+    auc, _ = fit_quality(one._state.user_table, one._state.item_table, planted_ml100k(seed))
+    check(_digests(one._state) == rec["digests"] and auc == rec["auc"],
+          f"({label}) the last checkpoint loads into a one-device model on {one._state.item_table.device} "
+          f"bitwise the assembled state (train AUC {auc:.4f})")
+
+
+def component_adds(torch, seed: int, n: int = 4) -> None:
+    """On this card, a step's item touches (TRAIN_BATCH rows over a twentieth
+    of TRAIN_ITEMS, so each row has about 26 duplicates) added to the whole
+    table and to each of its ``n`` component parts: every part adds bitwise
+    as the whole (``ops.updates.accumulate_rows`` pads a part of at most 32
+    columns); logs how many entries a plain ``index_put_`` on the parts
+    gets otherwise (PyTorch's small-stride kernel sums a row's duplicates
+    before it adds them)."""
+    from lightfm_tpu_torch.ops.updates import scatter_add
+    from lightfm_tpu_torch.state import table_width
+
+    rng = np.random.RandomState(seed)
+    R, W, M = TRAIN_ITEMS, table_width(D), TRAIN_BATCH
+    dev = torch.device("cuda", torch.cuda.current_device())
+    table = torch.from_numpy(rng.randn(R, W).astype(np.float32)).to(dev)
+    rows = torch.from_numpy(rng.randint(0, R // 20, M)).to(dev)
+    vals = torch.from_numpy(rng.randn(M, W).astype(np.float32)).to(dev)
+    whole = table.clone()
+    scatter_add(whole, rows, vals)
+    k, same, plain = W // n, 0, 0
+    for c0 in range(0, W, k):
+        c = slice(c0, c0 + k)
+        part = table[:, c].contiguous()
+        scatter_add(part, rows, vals[:, c].contiguous(), W)
+        same += bool(torch.equal(part, whole[:, c]))
+        raw = table[:, c].contiguous()
+        raw.index_put_((rows,), vals[:, c].contiguous(), accumulate=True)
+        plain += int((raw != whole[:, c]).sum())
+    log(f"  component parts of {k} of {W} columns: a plain index_put_ on the parts differs from "
+        f"the whole table's sums in {plain} of {R * W} entries")
+    check(same == n, f"each of the {n} parts of {k} columns adds a step's touches bitwise as "
+          f"the whole {W}-column table")
+
+
+def split_path(torch, seed: int) -> dict:
+    """Phase 11: row and component table partitions over ``torch.distributed``,
+    in child processes.  Returns each rank's K2 and ``pair_scores`` launch
+    counts of its ``predict_rank`` on a split model."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    log(f"phase 11: split tables. (a) rows, (b) components on a (1, 2) mesh of two gloo ranks "
+        f"{_where(2, n_cards)}, {TRAIN_USERS} users x {TRAIN_ITEMS} items, D={D}, batch "
+        f"{TRAIN_BATCH}, {SPLIT_STEPS} steps; (c) rows on a (2, 2) mesh of four "
+        f"{_where(4, n_cards)}, the quickstart size")
+    component_adds(torch, seed)
+    card = nvidia_smi("name,power.limit")
+    with tempfile.TemporaryDirectory() as tmp:
+        for sub in ("ab", "c"):
+            os.makedirs(os.path.join(tmp, sub))
+        t0 = time.perf_counter()
+        ab = run_ranks(torch, "gloo", 2, seed, os.path.join(tmp, "ab"), part="split")
+        secs_ab = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        c = run_ranks(torch, "gloo", 4, seed, os.path.join(tmp, "c"), part="split22")
+        secs_c = time.perf_counter() - t0
+        checkpoint_one_device(torch, os.path.join(tmp, "c", "quickstart.npz"), c[0], seed, "c")
+    report_split(ab, card, "gloo")
+    report_split22(c, card, "gloo", "c")
     secs = time.perf_counter() - t_phase
     log(f"  phase 11: {secs:.1f} s ((a, b) {secs_ab:.1f}, (c) {secs_c:.1f}, child start-up "
         "included)")
@@ -2956,17 +3176,244 @@ def split_path(torch, seed: int) -> dict:
             for r, rec in enumerate(ab) for partition in ("rows", "components")}
 
 
+# Phase 12: NCCL across cards, one rank a card, in child processes as phases
+# 10 and 11; it runs where the machine has two cards or more (cards_plan).
+# (a) data-parallel on (n, 1): the 5M fast fit through K1 under NCCL, then
+# the same fit under gloo on the same cards, bitwise; (b) rows and (c)
+# components on (1, n): split_rank under NCCL; (d) at n = 4, split22_rank
+# under NCCL.  Its own timeouts, so that an NCCL hang fails fast.
+CARDS_EPOCHS = 2
+CARDS_CHILD_TIMEOUT_S = 180
+CARDS_PG_TIMEOUT_S = 90
+
+
+def cards_plan(n_cards: int) -> dict:
+    """Phase 12's ranks and parts on a machine with ``n_cards`` cards: one
+    rank a card on the largest power of two up to min(4, n_cards) (the row
+    splits of 100,000 items and 200,000 users need n to divide both, which
+    3 does not), with (d), a (2, 2) mesh, at four; none below two cards."""
+    ranks = 4 if n_cards >= 4 else 2 if n_cards >= 2 else 0
+    return {"ranks": ranks, "parts": ("a", "b", "c", "d")[:{0: 0, 2: 3, 4: 4}[ranks]]}
+
+
+def cards_with_context() -> list:
+    """The cards (ordinals) on which this process holds an active primary
+    CUDA context, from libcuda (``cuDevicePrimaryCtxGetState``)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_int()
+    if cu.cuDeviceGetCount(ctypes.byref(n)):
+        raise RuntimeError("cuDeviceGetCount failed")
+    out = []
+    for i in range(n.value):
+        dev, flags, active = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        if cu.cuDeviceGet(ctypes.byref(dev), i) or cu.cuDevicePrimaryCtxGetState(
+                dev, ctypes.byref(flags), ctypes.byref(active)):
+            raise RuntimeError(f"libcuda refused to report card {i}'s context")
+        if active.value:
+            out.append(i)
+    return out
+
+
+def compute_apps(n_cards: int) -> dict:
+    """``nvidia-smi``'s compute processes: its lines as printed, and their
+    count on each card by index."""
+    def query(what):
+        return subprocess.run(["nvidia-smi", what, "--format=csv,noheader"], check=True,
+                              capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+
+    index = {}
+    for line in query("--query-gpu=index,uuid"):
+        i, uuid = (x.strip() for x in line.split(","))
+        index[uuid] = int(i)
+    lines = query("--query-compute-apps=pid,gpu_uuid,used_memory")
+    per_card = [0] * n_cards
+    for line in lines:
+        fields = [x.strip() for x in line.split(",")]
+        if len(fields) == 3 and fields[1] in index:
+            per_card[index[fields[1]]] += 1
+    return {"lines": lines, "per_card": per_card}
+
+
+def topology() -> list:
+    """What ``nvidia-smi`` says of the links between the cards: ``topo -m``
+    and card 0's NVLink status, line by line, or a query's exit code and
+    first line where the machine refuses it (a container may)."""
+    out = []
+    for args in (["topo", "-m"], ["nvlink", "--status", "-i", "0"]):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        lines = (r.stdout + r.stderr).strip().splitlines() or [""]
+        name = "nvidia-smi " + " ".join(args)
+        out += ([f"{name}: {line}" for line in lines] if r.returncode == 0
+                else [f"{name}: exit {r.returncode}: {lines[0]}"])
+    return out
+
+
+def cards_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
+    """(a) ``make_mesh(n_data=n)``, one rank a card, under NCCL or gloo: the
+    ``synth-5m-warp-d64`` fit of CARDS_EPOCHS epochs on the data-parallel
+    fast path, K1 at 2 launches a step; the state's digests (the parent
+    holds them across ranks and backends); ``recommend`` through
+    ``top_k_sharded`` against ``top_k`` on the same state without a mesh;
+    epoch and collective times, peaks while placing, fitting and serving;
+    the cards on which this process holds a context once its mesh is made
+    and at the end (under NCCL its own card alone), and under NCCL rank
+    0's compute-apps listing taken while every rank holds its group."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.parallel.mesh import barrier
+
+    n = dist.get_world_size()
+    mesh = _card_mesh(torch, rank, n_data=n, n_model=1)
+    at_mesh = cards_with_context()
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    m = LightFM(loss="warp", no_components=D, batch_size=TRAIN_BATCH, random_state=seed,
+                mesh=mesh)
+    out, peaks = _fit_peaks(torch, _mesh_fit, torch, m, mesh, coo, CARDS_EPOCHS)
+    check(m._staged_fast == "einsum", "the mesh fit took the data-parallel fast path")
+    k1 = out["launches"]["sorted_adagrad_update"]
+    check(k1 == 2 * out["steps"], f"K1 launched 2 x {out['steps']} steps = {k1} times on rank {rank}")
+    out["digests"] = _digests(m._state)
+
+    users = np.arange(0, TRAIN_USERS, TRAIN_USERS // MESH_REC_USERS)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s_mesh, i_mesh = m.recommend(users, k=10)
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    peaks["serve"] = torch.cuda.max_memory_allocated() - held
+    out.update(peaks=peaks, serve_collectives=_collectives())
+    one = pickle.loads(pickle.dumps(m))  # the same state, no mesh
+    s_one, i_one = one.recommend(users, k=10)
+    check(np.array_equal(i_mesh, i_one), "recommend through top_k_sharded returns top_k's ids")
+    err = float(np.abs(s_mesh - s_one).max())
+    check(err <= 1e-6, f"and its scores (max |d| {err:.3g}, bitwise {np.array_equal(s_mesh, s_one)})")
+    out["rec_max_abs_err"] = err
+
+    out["contexts"] = {"mesh": at_mesh, "end": cards_with_context()}
+    if dist.get_backend() != "nccl":  # gloo binds no card: logged, not held
+        return out
+    check(out["contexts"]["end"] == [mesh.device.index],
+          f"rank {rank} holds a CUDA context on its own card alone ({out['contexts']['end']})")
+    barrier(mesh)  # every rank holds its group and its context
+    if rank == 0:
+        out["apps"] = compute_apps(torch.cuda.device_count())
+    barrier(mesh)
+    return out
+
+
+def cards_path(torch, seed: int) -> dict:
+    """Phase 12: NCCL across cards, one rank a card, in child processes.
+    On a machine with one card it logs that it needs two and returns
+    nothing.  Returns each rank's launch counts of its data-parallel fit
+    and of its split ``predict_rank``."""
+    import tempfile
+
+    from lightfm_tpu_torch.ops import _build
+
+    n_cards = torch.cuda.device_count()
+    plan = cards_plan(n_cards)
+    if not plan["ranks"]:
+        log(f"phase 12: NCCL across cards needs two cards; this machine has {n_cards}")
+        return {}
+    n = plan["ranks"]
+    t_phase = time.perf_counter()
+    _build.build_all()  # built by phase 1; the children only load the libraries
+    torch.cuda.empty_cache()
+    log(f"phase 12: NCCL across cards, one rank a card on {n} of {n_cards}: (a) data-parallel "
+        f"on ({n}, 1), {CARDS_EPOCHS} epochs of {TRAIN_USERS} users x {TRAIN_ITEMS} items, "
+        f"D={D}, batch {TRAIN_BATCH}, under NCCL, then gloo on the same cards; (b) rows, "
+        f"(c) components on (1, {n}), {SPLIT_STEPS} steps"
+        + ("; (d) rows on (2, 2), the quickstart size" if "d" in plan["parts"] else ""))
+    card = nvidia_smi("name,power.limit")
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                            "--format=csv,noheader"], check=True, capture_output=True, text=True,
+                           timeout=60).stdout.strip().splitlines()
+    log("  cards: " + " | ".join(cards))
+    for line in topology():
+        log(f"  {line}")
+    secs, launches = {}, {}
+    kw = dict(timeout_s=CARDS_CHILD_TIMEOUT_S, pg_timeout_s=CARDS_PG_TIMEOUT_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for name, backend, world, part in (
+                ("a nccl", "nccl", n, "cards"), ("a gloo", "gloo", n, "cards"),
+                ("b, c", "nccl", n, "split"), ("d", "nccl", 4, "split22")):
+            if name == "d" and "d" not in plan["parts"]:
+                continue
+            os.makedirs(os.path.join(tmp, name))
+            t0 = time.perf_counter()
+            runs[name] = run_ranks(torch, backend, world, seed, os.path.join(tmp, name), part=part,
+                                   **kw)
+            secs[name] = time.perf_counter() - t0
+        if "d" in runs:
+            checkpoint_one_device(torch, os.path.join(tmp, "d", "quickstart.npz"), runs["d"][0],
+                                  seed, "d")
+
+    for backend in ("nccl", "gloo"):
+        for r, rec in enumerate(runs[f"a {backend}"]):
+            p = rec["peaks"]
+            log(f"  (a) {backend} rank {r} ({card}): epoch ms (CUDA events) "
+                f"{json.dumps(rec['epoch_ms'])}; collectives {rec['collective_ms_per_step']:.3f} "
+                f"ms a step (host clock), {rec['collective_calls_per_step']:.1f} calls, "
+                f"{rec['bytes_per_step'] / 1e6:.3f} MB sent a step; K1 "
+                f"{rec['launches']['sorted_adagrad_update']} launches; peak MB above the rank's "
+                f"prior allocation: placing {p['placed'] / 1e6:.3f}, fitting "
+                f"{p['fit'] / 1e6:.3f}, recommend {p['serve'] / 1e6:.3f} "
+                f"({rec['serve_s'] * 1e3:.1f} ms, host clock)")
+            log(f"    the fit's collectives (CUDA events, placement included): "
+                f"{_card_words(rec['collectives'])}; recommend's: "
+                f"{_card_words(rec['serve_collectives'])}; CUDA contexts on cards "
+                f"{rec['contexts']['mesh']} once the mesh was made, {rec['contexts']['end']} "
+                "at the end")
+    nccl, gloo = runs["a nccl"], runs["a gloo"]
+    for backend, recs in (("nccl", nccl), ("gloo", gloo)):
+        check(all(rec["digests"] == recs[0]["digests"] for rec in recs),
+              f"(a) {backend}: the {n} replicas are bitwise equal")
+    check(nccl[0]["digests"] == gloo[0]["digests"],
+          "(a) the NCCL state is bitwise the gloo state on the same mesh and cards")
+    apps = nccl[0]["apps"]
+    for line in apps["lines"]:
+        log(f"  compute apps (pid, card, memory) while the NCCL ranks held their groups: {line}")
+    if apps["lines"]:
+        mine = cards_with_context()  # this process's own contexts (cuda:0 after phases 1-11)
+        want = [(1 if i < n else 0) + (i in mine) for i in range(n_cards)]
+        check(apps["per_card"] == want, f"(a) nvidia-smi lists one rank's process on each of the "
+              f"{n} cards, and this process on {mine} ({apps['per_card']})")
+    else:
+        log("  nvidia-smi lists no compute process here; the ranks' own context checks stand")
+    report_split(runs["b, c"], card, "nccl", labels=("b", "c"))
+    if "d" in runs:
+        report_split22(runs["d"], card, "nccl", "d")
+    for backend in ("nccl", "gloo"):
+        for r, rec in enumerate(runs[f"a {backend}"]):
+            launches[f"cards {backend} rank {r} data-parallel fit"] = rec["launches"]
+    for r, rec in enumerate(runs["b, c"]):
+        for partition in ("rows", "components"):
+            launches[f"cards nccl rank {r} {partition} predict_rank"] = (
+                rec[partition]["predict_rank_launches"])
+    total = time.perf_counter() - t_phase
+    log(f"  phase 12: {total:.1f} s ({', '.join(f'({k}) {v:.1f}' for k, v in secs.items())}, "
+        "child start-up included)")
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
-    # A child of phase 10 (run_ranks): its backend, rank and rendezvous.
+    # A child of phases 10-12 (run_ranks): its backend, rank and rendezvous.
     p.add_argument("--mesh-rank", choices=("nccl", "gloo"), help=argparse.SUPPRESS)
     p.add_argument("--rank", type=int, help=argparse.SUPPRESS)
     p.add_argument("--world", type=int, help=argparse.SUPPRESS)
     p.add_argument("--port", type=int, help=argparse.SUPPRESS)
     p.add_argument("--out", help=argparse.SUPPRESS)
-    p.add_argument("--part", default="mesh", choices=("mesh", "split", "split22"),
+    p.add_argument("--part", default="mesh", choices=("mesh", "split", "split22", "cards"),
                    help=argparse.SUPPRESS)
+    p.add_argument("--pg-timeout", type=float, default=MESH_PG_TIMEOUT_S, help=argparse.SUPPRESS)
     args = p.parse_args()
 
     import torch
@@ -3016,6 +3463,16 @@ def main() -> int:
               f"{rec['name']} launched on every rank's split predict_rank")
     check(all(v["sorted_adagrad_update"] > 0 for k, v in mesh_launches.items() if "fit warp" in k),
           "sorted_adagrad_update launched on every rank's mesh fit")
+    cards_launches = cards_path(torch, args.seed)
+    if cards_launches:
+        log("  kernel launches by path, phase 12 (each counted from 0 in its rank): "
+            + json.dumps(cards_launches))
+        check(all(v["sorted_adagrad_update"] > 0 for k, v in cards_launches.items()
+                  if k.endswith("fit")), "sorted_adagrad_update launched on every rank's "
+              "data-parallel fit across cards")
+        check(all(v["rank_counts"] > 0 and v["pair_scores"] > 0 for k, v in cards_launches.items()
+                  if k.endswith("predict_rank")), "rank_counts and pair_scores launched on every "
+              "rank's split predict_rank across cards")
     items, k4 = trained["rows"]["items"], trained["rows"]["k4"]
     k1_launches = trained["launches"]["sorted_adagrad_update"]
     check(k1_launches > 0, "sorted_adagrad_update launched on the training path")
@@ -3071,6 +3528,9 @@ def main() -> int:
         },
     ]
 
+    for rec in kernels:  # phase 12's counts where a kernel ran there ({} on one card)
+        rec["launches_cards"] = {k: v[rec["name"]] for k, v in cards_launches.items()
+                                 if v.get(rec["name"])}
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

@@ -31,7 +31,8 @@ It is left out here: one function covers both of its regimes.
 
 Determinism on CUDA: every scatter-add goes through :func:`scatter_add`
 (``index_put_(accumulate=True)``, which sums each row's duplicates in a
-fixed order).  The scatter-multiplies (``index_reduce_(..., "prod")``) use
+fixed order; a component partition's columns add in the whole width's
+order, :func:`accumulate_rows`).  The scatter-multiplies (``index_reduce_(..., "prod")``) use
 atomics on CUDA, so their order changes from run to run, yet the result
 does not: every unmasked factor of a given (row, column) is the same bit
 pattern (``rho``, or ``1 + alpha * lr_local`` where ``lr_local`` depends on
@@ -49,15 +50,45 @@ import torch
 warnings.filterwarnings("ignore", message=r"index_reduce\(\) is in beta")
 
 
-def scatter_add(target: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> None:
+# PyTorch's CUDA ``index_put_(accumulate=True)`` adds a row's duplicates to
+# the target one by one, ``(t + v1) + v2``, when a row has more than this
+# many elements, but sums them first, ``t + (v1 + v2)``, when it has this
+# many or fewer (its small-stride kernel): the two round differently.
+_SMALL_ROW = 32
+
+
+def scatter_add(target: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
+                full_width: int | None = None) -> None:
     """``target[rows] += values`` in place, duplicates summed in a fixed
     order.  On CUDA ``index_add_`` uses atomics (its fp32 order changes from
     run to run) while ``index_put_(accumulate=True)`` sorts the indices and
-    sums each row serially; on the CPU it is the other way round."""
+    sums each row serially; on the CPU it is the other way round.
+
+    ``full_width``: ``target`` holds some columns of a table that wide (a
+    component partition).  Its rows then add as the whole table's would
+    (``accumulate_rows``), so a split table stays bitwise one device's."""
     if target.is_cuda:
-        target.index_put_((rows,), values, accumulate=True)
+        accumulate_rows(target, rows, values, full_width)
     else:
         target.index_add_(0, rows, values)
+
+
+def accumulate_rows(target: torch.Tensor, rows: torch.Tensor, values: torch.Tensor,
+                    full_width: int | None = None) -> None:
+    """``target.index_put_((rows,), values, accumulate=True)``; when
+    ``target``'s rows are at most ``_SMALL_ROW`` wide but ``full_width``'s
+    are wider, through a copy padded past ``_SMALL_ROW`` columns, so that
+    the duplicates add in the whole width's order (the pad columns add
+    zeros and are dropped)."""
+    width = target.shape[1] if target.dim() == 2 else 1
+    if full_width is None or not width <= _SMALL_ROW < full_width:
+        target.index_put_((rows,), values, accumulate=True)
+        return
+    pad = (0, _SMALL_ROW + 1 - width)
+    wide = torch.nn.functional.pad(target.reshape(-1, width), pad)
+    wide.index_put_((rows,), torch.nn.functional.pad(values.reshape(-1, width), pad),
+                    accumulate=True)
+    target.copy_(wide[:, :width].reshape(target.shape))
 
 
 def scatter_mul(target: torch.Tensor, rows: torch.Tensor, factors: torch.Tensor) -> None:
@@ -107,18 +138,18 @@ def sparse_update(
     if not adadelta:
         # adagrad (template:376-389, 436-449).
         lr_local = learning_rate * torch.rsqrt(acc[idx])  # [M, W]
-        scatter_add(table, idx, -(lr_local * wg))
-        scatter_add(acc, idx, wg * wg)
+        scatter_add(table, idx, -(lr_local * wg), full_width)
+        scatter_add(acc, idx, wg * wg, full_width)
     else:
         # adadelta (template:359-374, 417-434).
         decay = torch.where(mask, rho, 1.0).to(table.dtype)[:, None].expand_as(wg).contiguous()
         scatter_mul(acc, idx, decay)
-        scatter_add(acc, idx, (1.0 - rho) * wg * wg)
+        scatter_add(acc, idx, (1.0 - rho) * wg * wg, full_width)
         lr_local = torch.sqrt(mom[idx] + eps) * torch.rsqrt(acc[idx] + eps)
         update = lr_local * wg
         scatter_mul(mom, idx, decay)
-        scatter_add(mom, idx, (1.0 - rho) * update * update)
-        scatter_add(table, idx, -update)
+        scatter_add(mom, idx, (1.0 - rho) * update * update, full_width)
+        scatter_add(table, idx, -update, full_width)
 
     if alpha != 0.0:
         # Lazy regularisation boost; masked touches get factor exactly 1.

@@ -75,9 +75,22 @@ def initialize_multihost(backend: Optional[str] = None, timeout_s: float = 300.0
     ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK`` environment variables that
     ``torchrun`` sets are read.  ``timeout_s`` bounds every collective, the
     rendezvous included.
+
+    Under NCCL the rank is bound to its card before the group starts: the
+    card of :func:`make_mesh` (``cuda:LOCAL_RANK``, else ``cuda:rank %
+    device_count``) becomes the current device and the group's
+    ``device_id``, so no rank opens a context, or NCCL's communicator, on
+    another rank's card.  Under gloo nothing is bound.
     """
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if "nccl" in backend:
+        rank = kwargs.get("rank", os.environ.get("RANK"))
+        if rank is None and "LOCAL_RANK" not in os.environ:
+            raise ValueError("an NCCL rank needs its card: pass rank= or set LOCAL_RANK or RANK")
+        card = _rank_device(-1 if rank is None else int(rank), None)
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(backend=backend, timeout=datetime.timedelta(seconds=timeout_s),
                             **kwargs)
 
@@ -141,6 +154,27 @@ def _rank_device(rank: int, device) -> torch.device:
                         else rank % torch.cuda.device_count())
 
 
+def _check_nccl_card(rank: int, world: int, dev: torch.device) -> None:
+    """Raise unless an NCCL rank's device is a card of its own: NCCL
+    refuses two ranks on one device, and a rank whose tensors lie on a
+    card other than its bound one would launch there from the wrong
+    context."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    here = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if here > cards:
+        raise RuntimeError(
+            f"NCCL runs one rank a card: {here} ranks on this machine, which has {cards} "
+            "CUDA device(s); use fewer ranks, or gloo"
+        )
+    bound = torch.cuda.current_device()
+    if dev != torch.device("cuda", bound):
+        raise RuntimeError(
+            f"rank {rank}'s mesh device is {dev}, but its process is bound to cuda:{bound}: "
+            "start the group with initialize_multihost, or call torch.cuda.set_device "
+            "with the rank's card first"
+        )
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Mesh:
     """Create a ``(data, model)`` mesh over the ranks of the process group.
 
@@ -149,6 +183,12 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
     rank's device is ``device`` when given, else ``cuda:LOCAL_RANK`` (or
     ``cuda:rank % device_count``); without CUDA, ``device="cpu"`` must be
     passed (``RuntimeError`` otherwise: no silent CPU run).
+
+    Under NCCL, one rank a card: ``RuntimeError`` when this machine runs
+    more ranks (``LOCAL_WORLD_SIZE``, which ``torchrun`` sets, else the
+    world) than it has cards, and when the rank's device is not the card
+    it is bound to (the current device, :func:`initialize_multihost`).
+    Gloo ranks may share a card.
     """
     if dist.is_initialized():
         world, rank, backend = dist.get_world_size(), dist.get_rank(), dist.get_backend()
@@ -163,6 +203,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Me
     dev = _rank_device(rank, device)
     if backend is None:
         return Mesh(n_data, n_model, rank, dev)
+    if "nccl" in backend:
+        _check_nccl_card(rank, world, dev)
     data_group = model_group = None
     # Every rank creates every group, in the same order.
     for m in range(n_model):
@@ -367,9 +409,10 @@ def _broadcast(buf: torch.Tensor, src: int, group=None) -> torch.Tensor:
 
 
 def barrier(mesh: Mesh) -> None:
-    """Wait for every rank of the world (a one-byte broadcast on the
-    mesh's device, which every backend takes)."""
-    broadcast_from_rank0(mesh, torch.zeros(1, dtype=torch.uint8, device=mesh.device))
+    """Wait for every rank of the world: a one-byte broadcast on the
+    mesh's device, which every backend takes, read back on the host (NCCL
+    only enqueues a collective, so the host waits for its result)."""
+    broadcast_from_rank0(mesh, torch.zeros(1, dtype=torch.uint8, device=mesh.device))[0].cpu()
 
 
 # ---------------------------------------------------------------------------

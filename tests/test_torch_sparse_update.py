@@ -160,3 +160,29 @@ def test_scatter_mul_order_does_not_matter():
         got = base.clone()
         updates.scatter_mul(got, idx[order], factors[order])
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("width, full_width, padded", [
+    (18, 72, True), (1, 72, True), (32, 33, True),
+    (36, 72, False), (33, 72, False), (16, 16, False), (72, None, False), (18, None, False),
+])
+def test_accumulate_rows_pads_a_narrow_component_part(monkeypatch, width, full_width, padded):
+    """A part of at most 32 columns of a wider table adds through a copy
+    padded past 32 columns (on CUDA its duplicates then add in the whole
+    width's order); the pad drops out: on the CPU, whose sums do not depend
+    on the width, they are a plain ``index_put_``'s."""
+    pads = []
+    real_pad = torch.nn.functional.pad
+    monkeypatch.setattr(torch.nn.functional, "pad",
+                        lambda x, p, *a, **k: pads.append(p) or real_pad(x, p, *a, **k))
+    rng = np.random.RandomState(width)
+    base = torch.tensor(rng.randn(50, width).astype(np.float32))
+    rows = torch.tensor(rng.randint(0, 50, 400))  # every row touched ~8 times
+    vals = torch.tensor(rng.randn(400, width).astype(np.float32))
+    want = base.clone()
+    want.index_put_((rows,), vals, accumulate=True)
+    got = base.clone()
+    updates.accumulate_rows(got, rows, vals, full_width)
+    assert torch.equal(got, want)
+    assert pads == ([(0, 33 - width)] * 2 if padded else [])
+
