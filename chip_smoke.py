@@ -637,7 +637,7 @@ def serving_path(torch, seed: int) -> dict:
     """Phase 3: predict_rank + metrics, recommend and predict at full width.
     Each path runs with the launch counts set to 0 just before it; returns
     the counts of the main path, one ``predict_rank`` call."""
-    from lightfm_tpu_torch import LightFM, evaluation, interop
+    from lightfm_tpu_torch import LightFM, evaluation, interop, observability
     from lightfm_tpu_torch.ops import rank_counts as rc
     from lightfm_tpu_torch.ops import ranking
 
@@ -652,7 +652,7 @@ def serving_path(torch, seed: int) -> dict:
     model.n_users_, model.n_items_ = N_USERS, N_ITEMS
 
     path_launches = {}
-    ranking.stats["clamped"] = 0
+    clamped0 = observability.device_counter(ranking.CLAMPED)
     (ranks, first), main = counted(rc, timed_predict_rank, torch, ranking, model, test, train)
     path_launches["predict_rank"] = main
     (again, second), path_launches["predict_rank (prep cached)"] = counted(
@@ -660,13 +660,14 @@ def serving_path(torch, seed: int) -> dict:
     )
     for what, b in (("first call", first), ("second call, prep cached", second)):
         log(f"  predict_rank {what}: " + json.dumps(b))
-    log(f"  kernel launches of one predict_rank: {main}; clamped: {ranking.stats['clamped']}")
+    clamped = observability.device_counter(ranking.CLAMPED) - clamped0
+    log(f"  kernel launches of one predict_rank: {main}; clamped: {clamped}")
     check(main["rank_counts"] > 0 and main["pair_scores"] > 0,
           "predict_rank went through both kernels")
     check(path_launches["predict_rank (prep cached)"] == main,
           "the cached call launches the same kernels")
     check(np.array_equal(ranks.data, again.data), "two predict_rank calls give equal ranks")
-    check(ranking.stats["clamped"] == 0, "the self-match clamp never changed a rank")
+    check(clamped == 0, "the self-match clamp never changed a rank")
     n_train = np.diff(train.indptr)[np.repeat(np.arange(N_USERS), np.diff(ranks.indptr))]
     check(bool((ranks.data >= 0).all() and (ranks.data <= N_ITEMS - 1 - n_train).all()),
           "every rank lies in [0, n_items - 1 - n_train(u)]")
@@ -741,7 +742,8 @@ def serving_path(torch, seed: int) -> dict:
     err = np.abs(got - want).max() / np.abs(want).max()
     check(bool(np.isfinite(got).all()) and err <= 1e-5,
           f"predict agrees with float64 numpy (max error {err:.2e} of max|score|)")
-    check(ranking.stats["clamped"] == 0, "no predict_rank call of phase 3 clamped a rank")
+    check(observability.device_counter(ranking.CLAMPED) == clamped0,
+          "no predict_rank call of phase 3 clamped a rank")
     log("  kernel launches by path (each counted from 0): " + json.dumps(path_launches))
     return main
 

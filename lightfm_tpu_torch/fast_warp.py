@@ -67,6 +67,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
 from lightfm_tpu_torch.losses import Batch
 from lightfm_tpu_torch.ops.adagrad_update import sorted_adagrad_update
@@ -278,6 +279,7 @@ def _stable_order(major: torch.Tensor, minor: torch.Tensor) -> torch.Tensor:
     return torch.sort(key, stable=True).indices
 
 
+@observability.spanned("epoch.shuffle")
 def shuffle_item_sorted(packed: torch.Tensor, perm: torch.Tensor, n_batches: int,
                         batch_size: int, mode: str = "feistel"):
     """Per-epoch shuffle emitting item-sorted batches + user-sort metadata
@@ -345,6 +347,7 @@ class EpochDraws(NamedTuple):
     shifts: Optional[torch.Tensor]
 
 
+@observability.spanned("epoch.draws")
 def draw_epoch(gen: torch.Generator, data, hp: Hyperparams, batch_size: int) -> EpochDraws:
     """Draw one epoch's :class:`EpochDraws` from ``gen`` on its device."""
     dev = gen.device
@@ -577,6 +580,7 @@ def _aggregated_feature_update(table, acc, feats_T, G, lr: float, precision: str
     acc.add_(S[:, W:])
 
 
+@observability.spanned("step.update")
 def _apply_pool_updates(state: ModelState, uid, pos_ids, gi, gu, suid, sigma,
                         pool_ids, gp, gp2, lr: float, user_pallas: bool,
                         precision: str, user_feats=None, item_feats=None,
@@ -637,8 +641,9 @@ def _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2):
         return uid, pos_ids, gi, gu, gp, gp2
     from lightfm_tpu_torch.parallel.mesh import all_gather_rows, sum_over_data
 
-    uid, pos_ids, gi, gu = all_gather_rows(mesh, uid, pos_ids, gi, gu)
-    gp, gp2 = sum_over_data(mesh, gp, gp2)
+    with observability.span("step.gather"):
+        uid, pos_ids, gi, gu = all_gather_rows(mesh, uid, pos_ids, gi, gu)
+        gp, gp2 = sum_over_data(mesh, gp, gp2)
     return uid, pos_ids, gi, gu, gp, gp2
 
 
@@ -647,6 +652,7 @@ def _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2):
 # ---------------------------------------------------------------------------
 
 
+@observability.spanned("step")
 def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
                    hp: Hyperparams, pool_ids, shifts, *, n_items: int,
                    user_pallas: bool, user_feats=None, item_feats=None,
@@ -673,40 +679,42 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     W = state.item_table.shape[1]
     prec = hp.fast_precision
 
-    u = batch_representation(state.user_table, user_feats, uid)  # [B, W]
-    prep = batch_representation(state.item_table, item_feats, pos_ids)
-    pool_ids = pool_ids.to(torch.int32)
-    pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
-    rids = _roll_ids(pool_ids, shifts, K)
+    with observability.span("step.score"):
+        u = batch_representation(state.user_table, user_feats, uid)  # [B, W]
+        prep = batch_representation(state.item_table, item_feats, pos_ids)
+        pool_ids = pool_ids.to(torch.int32)
+        pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
+        rids = _roll_ids(pool_ids, shifts, K)
 
-    u1 = with_unit_bias(u)
-    pos_pred = score_pairs(u, prep)  # [B]
-    rp = _rolled_reps(pool_reps, shifts, K)
-    u1q = u1.reshape(Q, P, W)
-    preds = (
-        _einsum("qsd,ksd->kqs", u1q, rp, prec) + u[:, -1].reshape(1, Q, P)
-    ).reshape(K, B)
-    cand_ids = rids[:, None, :].expand(K, Q, P).reshape(K, B)
+        u1 = with_unit_bias(u)
+        pos_pred = score_pairs(u, prep)  # [B]
+        rp = _rolled_reps(pool_reps, shifts, K)
+        u1q = u1.reshape(Q, P, W)
+        preds = (
+            _einsum("qsd,ksd->kqs", u1q, rp, prec) + u[:, -1].reshape(1, Q, P)
+        ).reshape(K, B)
+        cand_ids = rids[:, None, :].expand(K, Q, P).reshape(K, B)
 
-    violates = preds > pos_pred[None, :] - 1.0  # template:875
-    is_pos = in_positives_slots(positives, uid, cand_ids)  # template:878
-    cand = violates & ~is_pos
-    found = cand.any(0)
-    j = torch.argmax(cand.to(torch.uint8), 0)  # first maximum, as jnp.argmax
-    sampled = (j + 1).to(torch.float32)
-    rank_weight = torch.log(torch.clamp(torch.floor((n_items - 1) / sampled), min=1.0))
-    loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
-    upd = batch.valid & (batch.y > 0) & found  # template:831
-    lossm = torch.where(upd, loss, torch.zeros_like(loss))  # masked: exact no-ops
+        violates = preds > pos_pred[None, :] - 1.0  # template:875
+        is_pos = in_positives_slots(positives, uid, cand_ids)  # template:878
+        cand = violates & ~is_pos
+        found = cand.any(0)
+        j = torch.argmax(cand.to(torch.uint8), 0)  # first maximum, as jnp.argmax
+        sampled = (j + 1).to(torch.float32)
+        rank_weight = torch.log(torch.clamp(torch.floor((n_items - 1) / sampled), min=1.0))
+        loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
+        upd = batch.valid & (batch.y > 0) & found  # template:831
+        lossm = torch.where(upd, loss, torch.zeros_like(loss))  # masked: exact no-ops
 
-    onehot = (j[None, :] == torch.arange(K, device=j.device)[:, None]).to(torch.float32)
-    nrep = _nrep_einsum(onehot, rp, Q, P, prec)
-    sel = onehot * lossm[None, :]
-    gp, gp2 = _fold_gp_einsum(sel, u1q, shifts, prec)
+    with observability.span("step.grads"):
+        onehot = (j[None, :] == torch.arange(K, device=j.device)[:, None]).to(torch.float32)
+        nrep = _nrep_einsum(onehot, rp, Q, P, prec)
+        sel = onehot * lossm[None, :]
+        gp, gp2 = _fold_gp_einsum(sel, u1q, shifts, prec)
 
-    # Gradients (warp_update, template:537-649), fused [emb | bias] layout.
-    gi = lossm[:, None] * u1
-    gu = lossm[:, None] * with_unit_bias(nrep - prep)
+        # Gradients (warp_update, template:537-649), fused [emb | bias] layout.
+        gi = lossm[:, None] * u1
+        gu = lossm[:, None] * with_unit_bias(nrep - prep)
     uid, pos_ids, gi, gu, gp, gp2 = _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
@@ -715,6 +723,7 @@ def warp_pool_step(state: ModelState, batch: Batch, positives, suid, sigma,
     )
 
 
+@observability.spanned("step")
 def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
                   suid, sigma, hp: Hyperparams, pool_pos, shifts, *,
                   user_pallas: bool, user_feats=None, item_feats=None,
@@ -734,33 +743,36 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
     W = state.item_table.shape[1]
     prec = hp.fast_precision
 
-    u = batch_representation(state.user_table, user_feats, uid)
-    prep = batch_representation(state.item_table, item_feats, pos_ids)
-    pool_ids = train_items[pool_pos.long()]
-    pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
-    rids = _roll_ids(pool_ids, shifts, T)
-    cand_ids = rids[:, None, :].expand(T, Q, P).reshape(T, B)
+    with observability.span("step.score"):
+        u = batch_representation(state.user_table, user_feats, uid)
+        prep = batch_representation(state.item_table, item_feats, pos_ids)
+        pool_ids = train_items[pool_pos.long()]
+        pool_reps = batch_representation(state.item_table, item_feats, pool_ids)
+        rids = _roll_ids(pool_ids, shifts, T)
+        cand_ids = rids[:, None, :].expand(T, Q, P).reshape(T, B)
 
-    ok = ~in_positives_slots(positives, uid, cand_ids)  # [T, B]
-    j = torch.where(
-        ok.any(0), torch.argmax(ok.to(torch.uint8), 0), torch.full_like(uid, T - 1, dtype=torch.int64)
-    )
-    u1 = with_unit_bias(u)
-    rp = _rolled_reps(pool_reps, shifts, T)
-    u1q = u1.reshape(Q, P, W)
-    onehot = (j[None, :] == torch.arange(T, device=j.device)[:, None]).to(torch.float32)
-    nrep = _nrep_einsum(onehot, rp, Q, P, prec)
+        ok = ~in_positives_slots(positives, uid, cand_ids)  # [T, B]
+        j = torch.where(
+            ok.any(0), torch.argmax(ok.to(torch.uint8), 0),
+            torch.full_like(uid, T - 1, dtype=torch.int64),
+        )
+        u1 = with_unit_bias(u)
+        rp = _rolled_reps(pool_reps, shifts, T)
+        u1q = u1.reshape(Q, P, W)
+        onehot = (j[None, :] == torch.arange(T, device=j.device)[:, None]).to(torch.float32)
+        nrep = _nrep_einsum(onehot, rp, Q, P, prec)
 
-    pos_pred = score_pairs(u, prep)
-    neg_pred = score_pairs(u, nrep)
-    loss = batch.weight * (1.0 - torch.sigmoid(pos_pred - neg_pred))  # template:1158
-    upd = batch.valid & (batch.y > 0)  # template:1116
-    lossm = torch.where(upd, loss, torch.zeros_like(loss))
+        pos_pred = score_pairs(u, prep)
+        neg_pred = score_pairs(u, nrep)
+        loss = batch.weight * (1.0 - torch.sigmoid(pos_pred - neg_pred))  # template:1158
+        upd = batch.valid & (batch.y > 0)  # template:1116
+        lossm = torch.where(upd, loss, torch.zeros_like(loss))
 
-    sel = onehot * lossm[None, :]
-    gp, gp2 = _fold_gp_einsum(sel, u1q, shifts, prec)
-    gi = lossm[:, None] * u1
-    gu = lossm[:, None] * with_unit_bias(nrep - prep)
+    with observability.span("step.grads"):
+        sel = onehot * lossm[None, :]
+        gp, gp2 = _fold_gp_einsum(sel, u1q, shifts, prec)
+        gi = lossm[:, None] * u1
+        gu = lossm[:, None] * with_unit_bias(nrep - prep)
     uid, pos_ids, gi, gu, gp, gp2 = _gather_streams(mesh, uid, pos_ids, gi, gu, gp, gp2)
     return _apply_pool_updates(
         state, uid, pos_ids, gi, gu, suid, sigma, pool_ids, gp, gp2,
@@ -769,6 +781,7 @@ def bpr_pool_step(state: ModelState, batch: Batch, positives, train_items,
     )
 
 
+@observability.spanned("step")
 def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
                          hp: Hyperparams, *, user_pallas: bool, mesh=None) -> ModelState:
     """One logistic step over an ITEM-SORTED batch (in place): sigmoid
@@ -776,25 +789,29 @@ def logistic_sorted_step(state: ModelState, batch: Batch, suid, sigma,
     (``fit_logistic``, template:694-781); no sampling.  Under a ``mesh`` as
     :func:`warp_pool_step`, with no pool."""
     uid, iid = batch.user_ids, batch.item_ids
-    u = state.user_table[uid.long()]
-    irep = state.item_table[iid.long()]
-    pred = torch.sigmoid(score_pairs(u, irep))
-    y01 = (batch.y > 0).to(torch.float32)  # template:751-758
-    loss = torch.where(batch.valid, batch.weight * (pred - y01), torch.zeros_like(pred))
+    with observability.span("step.score"):
+        u = state.user_table[uid.long()]
+        irep = state.item_table[iid.long()]
+        pred = torch.sigmoid(score_pairs(u, irep))
+        y01 = (batch.y > 0).to(torch.float32)  # template:751-758
+        loss = torch.where(batch.valid, batch.weight * (pred - y01), torch.zeros_like(pred))
 
-    gi = loss[:, None] * with_unit_bias(u)
-    gu = loss[:, None] * with_unit_bias(irep)
+    with observability.span("step.grads"):
+        gi = loss[:, None] * with_unit_bias(u)
+        gu = loss[:, None] * with_unit_bias(irep)
     if mesh is not None:
         from lightfm_tpu_torch.parallel.mesh import all_gather_rows
 
-        uid, iid, gi, gu = all_gather_rows(mesh, uid, iid, gi, gu)
+        with observability.span("step.gather"):
+            uid, iid, gi, gu = all_gather_rows(mesh, uid, iid, gi, gu)
     prec = hp.fast_precision
     lr = hp.learning_rate
-    _sorted_update(state.item_table, state.item_acc, iid, gi, lr, prec)
-    if user_pallas:
-        _sorted_update(state.user_table, state.user_acc, suid, gu[sigma.long()], lr, prec)
-    else:
-        _scatter_update(state.user_table, state.user_acc, uid, gu, gu * gu, lr)
+    with observability.span("step.update"):
+        _sorted_update(state.item_table, state.item_acc, iid, gi, lr, prec)
+        if user_pallas:
+            _sorted_update(state.user_table, state.user_acc, suid, gu[sigma.long()], lr, prec)
+        else:
+            _scatter_update(state.user_table, state.user_acc, uid, gu, gu * gu, lr)
     return state
 
 

@@ -28,6 +28,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import Hyperparams
 from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
@@ -286,6 +287,7 @@ class LightFM:
             return interactions.data
         return np.ones_like(interactions.data, dtype=CYTHON_DTYPE)
 
+    @observability.spanned("fit.finite_check")
     def _check_finite(self):
         """Raise when a table's sum is not finite.  Under a row or component
         partition each rank sums its own part and the flags are summed over
@@ -356,6 +358,7 @@ class LightFM:
             checkpoint_path=checkpoint_path,
         )
 
+    @observability.spanned("fit", call=True)
     def fit_partial(
         self,
         interactions,
@@ -441,7 +444,6 @@ class LightFM:
             if own != rank_dev:  # "cuda" names no card; the mesh gives its index
                 self.device = rank_dev
         from lightfm_tpu_torch.fast_warp import apply_env_overrides, fast_warp_eligible
-        from lightfm_tpu_torch.observability import FitStats
         from lightfm_tpu_torch.state import init_state, table_width
         from lightfm_tpu_torch.train import (
             build_train_data,
@@ -453,85 +455,86 @@ class LightFM:
         # Fold pending in-place edits of handed-out state views first.
         self._sync_mirrors()
         self._drop_state_dependent_cache()
-        interactions = interactions.tocoo()
-        if interactions.dtype != CYTHON_DTYPE:
-            interactions.data = interactions.data.astype(CYTHON_DTYPE)
+        with observability.span("fit.stage"):
+            interactions = interactions.tocoo()
+            if interactions.dtype != CYTHON_DTYPE:
+                interactions.data = interactions.data.astype(CYTHON_DTYPE)
 
-        sample_weight_data = self._process_sample_weight(interactions, sample_weight)
+            sample_weight_data = self._process_sample_weight(interactions, sample_weight)
 
-        n_users, n_items = interactions.shape
-        (user_features, item_features) = self._construct_feature_matrices(
-            n_users, n_items, user_features, item_features
-        )
-
-        for input_data in (
-            user_features.data,
-            item_features.data,
-            interactions.data,
-            sample_weight_data,
-        ):
-            self._check_input_finite(input_data)
-
-        if self._state is not None:
-            if not item_features.shape[1] == self._table_shape("item")[0]:
-                raise ValueError("Incorrect number of features in item_features")
-            if not user_features.shape[1] == self._table_shape("user")[0]:
-                raise ValueError("Incorrect number of features in user_features")
-        if num_threads < 1:
-            raise ValueError("Number of threads must be 1 or larger.")
-
-        hp = apply_env_overrides(
-            self._hp(bpr_tries=self._bpr_tries_for(interactions) if self.loss == "bpr" else 8)
-        )
-        batch_size = choose_batch_size(len(interactions.data), self.batch_size)
-        data = build_train_data(
-            interactions,
-            np.asarray(sample_weight_data),
-            self._pad_features(user_features),
-            self._pad_features(item_features),
-            hp,
-            batch_size,
-            self._device,
-        )
-        W = table_width(self.no_components)
-        shapes = ((item_features.shape[1], W), (user_features.shape[1], W))
-        table_partition = self._resolve_table_partition(shapes)
-        placement = None if mesh is None else plan_placement(mesh, table_partition, *shapes)
-        if self._state is None:
-            # Under a mesh every rank draws rank 0's tables and keeps its part.
-            self._state = init_state(
-                self.no_components,
-                item_features.shape[1],
-                user_features.shape[1],
-                self.random_state,
-                adagrad=(self.learning_schedule == "adagrad"),
-                device=self._device,
-                **({} if mesh is None else dict(share_seed=self._rank0_seed,
-                                                part=placement.part)),
+            n_users, n_items = interactions.shape
+            (user_features, item_features) = self._construct_feature_matrices(
+                n_users, n_items, user_features, item_features
             )
-        elif mesh is not None:
-            self._state = place_state(self._state, placement, self._placement)
-        elif self._placement is not None:  # a mesh fit before this one
-            self._state = ModelState(*(x.to(self._device) for x in self._whole_state()))
-        self._placement = placement
-        if mesh is not None:
-            data = shard_train_data(data, mesh, self.shard_examples)
-        fast = fast_warp_eligible(hp, data, mesh, self.example_shuffle, batch_size,
-                                  table_partition=table_partition,
-                                  shard_examples=self.shard_examples)
-        if fast and hp.loss in ("warp", "bpr"):
-            # Hybrid aggregated update: stage the TRANSPOSED feature lists
-            # so feature-table updates run scatter-free; None for identity
-            # sides or when the dense per-step streams would outgrow the
-            # batch-proportional budget.
-            data = data._replace(
-                user_feats_T=self._transposed_features(
-                    user_features, data.user_feats, batch_size, hp.fast_precision
-                ),
-                item_feats_T=self._transposed_features(
-                    item_features, data.item_feats, batch_size, hp.fast_precision
-                ),
+
+            for input_data in (
+                user_features.data,
+                item_features.data,
+                interactions.data,
+                sample_weight_data,
+            ):
+                self._check_input_finite(input_data)
+
+            if self._state is not None:
+                if not item_features.shape[1] == self._table_shape("item")[0]:
+                    raise ValueError("Incorrect number of features in item_features")
+                if not user_features.shape[1] == self._table_shape("user")[0]:
+                    raise ValueError("Incorrect number of features in user_features")
+            if num_threads < 1:
+                raise ValueError("Number of threads must be 1 or larger.")
+
+            hp = apply_env_overrides(
+                self._hp(bpr_tries=self._bpr_tries_for(interactions) if self.loss == "bpr" else 8)
             )
+            batch_size = choose_batch_size(len(interactions.data), self.batch_size)
+            data = build_train_data(
+                interactions,
+                np.asarray(sample_weight_data),
+                self._pad_features(user_features),
+                self._pad_features(item_features),
+                hp,
+                batch_size,
+                self._device,
+            )
+            W = table_width(self.no_components)
+            shapes = ((item_features.shape[1], W), (user_features.shape[1], W))
+            table_partition = self._resolve_table_partition(shapes)
+            placement = None if mesh is None else plan_placement(mesh, table_partition, *shapes)
+            if self._state is None:
+                # Under a mesh every rank draws rank 0's tables and keeps its part.
+                self._state = init_state(
+                    self.no_components,
+                    item_features.shape[1],
+                    user_features.shape[1],
+                    self.random_state,
+                    adagrad=(self.learning_schedule == "adagrad"),
+                    device=self._device,
+                    **({} if mesh is None else dict(share_seed=self._rank0_seed,
+                                                    part=placement.part)),
+                )
+            elif mesh is not None:
+                self._state = place_state(self._state, placement, self._placement)
+            elif self._placement is not None:  # a mesh fit before this one
+                self._state = ModelState(*(x.to(self._device) for x in self._whole_state()))
+            self._placement = placement
+            if mesh is not None:
+                data = shard_train_data(data, mesh, self.shard_examples)
+            fast = fast_warp_eligible(hp, data, mesh, self.example_shuffle, batch_size,
+                                      table_partition=table_partition,
+                                      shard_examples=self.shard_examples)
+            if fast and hp.loss in ("warp", "bpr"):
+                # Hybrid aggregated update: stage the TRANSPOSED feature lists
+                # so feature-table updates run scatter-free; None for identity
+                # sides or when the dense per-step streams would outgrow the
+                # batch-proportional budget.
+                data = data._replace(
+                    user_feats_T=self._transposed_features(
+                        user_features, data.user_feats, batch_size, hp.fast_precision
+                    ),
+                    item_feats_T=self._transposed_features(
+                        item_features, data.item_feats, batch_size, hp.fast_precision
+                    ),
+                )
 
         # Remembered for serving defaults (recommend's catalog size).
         self.n_users_, self.n_items_ = n_users, n_items
@@ -545,7 +548,7 @@ class LightFM:
         self._staged_batch_size = batch_size
         self._staged_fast = fast
 
-        stats = FitStats(n_examples=len(interactions.data), epochs=epochs)
+        stats = observability.FitStats(n_examples=len(interactions.data), epochs=epochs)
         # One seed per epoch from the numpy RandomState, whatever the
         # dispatch granularity (the reference's random-state contract).
         # With checkpoints they are drawn per chunk: the checkpoint keeps
@@ -1032,6 +1035,7 @@ class LightFM:
     # Prediction
     # ------------------------------------------------------------------
 
+    @observability.spanned("predict", call=True)
     def predict(
         self, user_ids, item_ids, item_features=None, user_features=None, num_threads=1
     ):
@@ -1083,6 +1087,7 @@ class LightFM:
         )
         return scores.cpu().numpy().astype(np.float32, copy=False)
 
+    @observability.spanned("predict_rank.intersections")
     def _check_test_train_intersections(self, test_mat, train_mat):
         if train_mat is not None:
             n_intersections = test_mat.multiply(train_mat).nnz
@@ -1093,6 +1098,7 @@ class LightFM:
                     "incorrect evaluation, check your data split." % n_intersections
                 )
 
+    @observability.spanned("predict_rank", call=True)
     def predict_rank(
         self,
         test_interactions,
@@ -1118,49 +1124,51 @@ class LightFM:
         if check_intersections:
             self._check_test_train_intersections(test_interactions, train_interactions)
 
-        n_users, n_items = test_interactions.shape
+        with observability.span("predict_rank.inputs"):
+            n_users, n_items = test_interactions.shape
 
-        (user_features, item_features) = self._construct_feature_matrices(
-            n_users, n_items, user_features, item_features
-        )
-
-        if not item_features.shape[1] == self._table_shape("item")[0]:
-            raise ValueError("Incorrect number of features in item_features")
-        if not user_features.shape[1] == self._table_shape("user")[0]:
-            raise ValueError("Incorrect number of features in user_features")
-
-        # Identity-keyed memoization keeps the converted CSRs stable across
-        # the per-epoch metric loop, so the tier prep hits its cache too.
-        test_interactions = self._memo_by_identity(
-            "test_csr",
-            test_interactions,
-            lambda m: m.tocsr().astype(CYTHON_DTYPE, copy=False),
-        )
-        if train_interactions is None:
-            train_interactions = self._serving_cache.setdefault(
-                ("empty_train", n_users, n_items),
-                sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE),
+            (user_features, item_features) = self._construct_feature_matrices(
+                n_users, n_items, user_features, item_features
             )
-        else:
-            train_interactions = self._memo_by_identity(
-                "train_csr", train_interactions, lambda m: m.tocsr()
+
+            if not item_features.shape[1] == self._table_shape("item")[0]:
+                raise ValueError("Incorrect number of features in item_features")
+            if not user_features.shape[1] == self._table_shape("user")[0]:
+                raise ValueError("Incorrect number of features in user_features")
+
+            # Identity-keyed memoization keeps the converted CSRs stable across
+            # the per-epoch metric loop, so the tier prep hits its cache too.
+            test_interactions = self._memo_by_identity(
+                "test_csr",
+                test_interactions,
+                lambda m: m.tocsr().astype(CYTHON_DTYPE, copy=False),
             )
+            if train_interactions is None:
+                train_interactions = self._serving_cache.setdefault(
+                    ("empty_train", n_users, n_items),
+                    sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE),
+                )
+            else:
+                train_interactions = self._memo_by_identity(
+                    "train_csr", train_interactions, lambda m: m.tocsr()
+                )
+            state = self._state._replace(item_table=self._serving_item_table())
+            user_feats = self._pad_features_cached(user_features)
+            item_feats = self._pad_features_cached(item_features)
+            user_placement = self._user_placement()
 
         ranks_data = predict_ranks_padded(
-            self._state._replace(item_table=self._serving_item_table()),
-            self._pad_features_cached(user_features),
-            self._pad_features_cached(item_features),
-            test_interactions,
-            train_interactions,
-            cache=self._serving_cache,
-            user_placement=self._user_placement(),
+            state, user_feats, item_feats, test_interactions, train_interactions,
+            cache=self._serving_cache, user_placement=user_placement,
         )
 
-        return sp.csr_matrix(
-            (ranks_data, test_interactions.indices, test_interactions.indptr),
-            shape=test_interactions.shape,
-        )
+        with observability.span("predict_rank.result"):
+            return sp.csr_matrix(
+                (ranks_data, test_interactions.indices, test_interactions.indptr),
+                shape=test_interactions.shape,
+            )
 
+    @observability.spanned("recommend", call=True)
     def recommend(
         self,
         user_ids,

@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from lightfm_tpu_torch import observability
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -80,12 +82,14 @@ def build_all() -> dict[str, ctypes.CDLL]:
                     stdout=fh, stderr=subprocess.STDOUT,
                 )
             procs.append((proc, tmp, out, log))
+            observability.count(f"kernel_builds.{src.stem}")
         failed = []
-        for proc, tmp, out, log in procs:
-            if proc.wait() == 0:
-                os.replace(tmp, out)  # atomic: concurrent builders agree
-            else:
-                failed.append(f"{out.name}:\n{log.read_text(errors='replace')}")
+        with observability.span("kernel.build"):
+            for proc, tmp, out, log in procs:
+                if proc.wait() == 0:
+                    os.replace(tmp, out)  # atomic: concurrent builders agree
+                else:
+                    failed.append(f"{out.name}:\n{log.read_text(errors='replace')}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         for src, out in todo.items():

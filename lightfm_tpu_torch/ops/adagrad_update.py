@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.ops import _build
 from lightfm_tpu_torch.ops.representation import round_to_bf16
 
@@ -121,6 +122,7 @@ def sorted_adagrad_update_plain(
     return table, acc
 
 
+@observability.spanned("kernel.k1")
 def sorted_adagrad_update(
     table: torch.Tensor,
     acc: torch.Tensor,

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.ops import _build
 from lightfm_tpu_torch.ops.adagrad_update import SEGMENT, aligned, scratch_shape
 from lightfm_tpu_torch.ops.representation import round_to_bf16
@@ -90,6 +91,7 @@ def sorted_grad_sums_plain(sidx, swg, n_rows: int, precision: str = "highest"):
     return out
 
 
+@observability.spanned("kernel.k3")
 def sorted_grad_sums(sidx: torch.Tensor, swg: torch.Tensor, n_rows: int,
                      precision: str = "highest") -> torch.Tensor:
     """K3: ``[n_rows, 2W]`` per-row ``[sum(wg) | sum(wg^2)]`` over touches

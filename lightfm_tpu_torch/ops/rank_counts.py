@@ -38,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.ops import _build
 from lightfm_tpu_torch.ops.representation import f32_dot
 
@@ -246,6 +247,7 @@ def rank_counts_plain(
     return out
 
 
+@observability.spanned("kernel.k2")
 def rank_counts(
     u_aug: torch.Tensor, items_aug: torch.Tensor, ts: torch.Tensor
 ) -> torch.Tensor:
@@ -299,6 +301,7 @@ def pair_scores_plain(
     return out
 
 
+@observability.spanned("kernel.pair_scores")
 def pair_scores(
     u_aug: torch.Tensor, items_aug: torch.Tensor, idx: torch.Tensor
 ) -> torch.Tensor:

@@ -32,6 +32,7 @@ import weakref
 import numpy as np
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.ops.rank_counts import MAX_T, pair_scores, rank_counts
 from lightfm_tpu_torch.ops.representation import (
     batch_representation,
@@ -54,10 +55,11 @@ COUNT_T_LIMIT = MAX_T
 # exclusion loop; the chunk width is chosen to stay within it.
 _EXCL_MASK_BUDGET = 256 << 20
 
-# How often _ranks_fused's clamp at zero changed a rank.  The kernels (and,
-# on the CPU, the plain versions) score a test item bitwise as its catalog
-# row, so the self match counts exactly once and this stays 0.
-stats = {"clamped": 0}
+# The device counter of ranks that _ranks_fused's clamp at zero changed.
+# The kernels (and, on the CPU, the plain versions) score a test item
+# bitwise as its catalog row, so the self match counts exactly once and it
+# stays 0 (observability.device_counter reads it).
+CLAMPED = "rank_clamped"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -284,7 +286,7 @@ def _ranks_fused(
         excl += (s_c[:, None, :] >= ts[:, :, None]).sum(-1)
 
     raw = counts - excl.to(torch.float32) - 1.0
-    stats["clamped"] += int(((raw < 0) & test_valid).sum())
+    observability.count_on_device(CLAMPED, ((raw < 0) & test_valid).sum())
     return torch.where(test_valid, raw.clamp(min=0.0), torch.zeros_like(raw))
 
 
@@ -369,6 +371,7 @@ def _build_tier(test_csr, train_csr, users: np.ndarray, user_block: int, device)
     )
 
 
+@observability.spanned("rank.prep")
 def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None):
     """Tiered, device-staged rank inputs, memoized across metric calls.
 
@@ -388,7 +391,9 @@ def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None
         if hit is not None:
             ref_t, ref_tr, tiers = hit
             if ref_t() is test_csr and ref_tr() is train_csr:
+                observability.count("rank_prep_hits")
                 return tiers
+    observability.count("rank_prep_misses")
     # Only users WITH test interactions are ranked (template:1232-1323).
     users = np.flatnonzero(np.diff(test_csr.indptr) > 0)
     tr_lengths = np.diff(train_csr.indptr)
@@ -465,19 +470,22 @@ def predict_ranks_padded(
             state, user_feats, item_feats,
             tier.user_ids, tier.test_idx, tier.test_valid, tier.train_idx,
         )
-        if _fused_tier(T, device.type):
-            # Kernel-fused path: scores never reach device memory; any
-            # catalog size.
-            ranks = _ranks_fused(*args, n_items=int(n_items), item_block=2048,
-                                 user_placement=user_placement, user_block=ub)
-        elif n_items <= FLAT_CATALOG_LIMIT:
-            ranks = _ranks_flat(*args, n_items=int(n_items), user_block=ub,
-                                user_placement=user_placement)
-        else:
-            ranks = _ranks_blocked(
-                *args, n_items=int(n_items), user_block=ub, item_block=int(item_block),
-                user_placement=user_placement,
-            )
-        ranks = ranks.cpu().numpy()
-        out[tier.nnz_pos] = ranks[tier.row_of, tier.pos_in_row]
+        with observability.span("rank.tier"):
+            if _fused_tier(T, device.type):
+                # Kernel-fused path: scores never reach device memory; any
+                # catalog size.
+                ranks = _ranks_fused(*args, n_items=int(n_items), item_block=2048,
+                                     user_placement=user_placement, user_block=ub)
+            elif n_items <= FLAT_CATALOG_LIMIT:
+                ranks = _ranks_flat(*args, n_items=int(n_items), user_block=ub,
+                                    user_placement=user_placement)
+            else:
+                ranks = _ranks_blocked(
+                    *args, n_items=int(n_items), user_block=ub, item_block=int(item_block),
+                    user_placement=user_placement,
+                )
+        with observability.span("rank.readback"):
+            ranks = ranks.cpu().numpy()
+        with observability.span("rank.scatter"):
+            out[tier.nnz_pos] = ranks[tier.row_of, tier.pos_in_row]
     return out

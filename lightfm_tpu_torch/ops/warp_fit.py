@@ -39,6 +39,7 @@ import ctypes
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import MAX_LOSS
 from lightfm_tpu_torch.ops import _build
 
@@ -163,6 +164,7 @@ def warp_fit_fused_plain(user_table, user_acc, item_table, item_acc, batches, ne
     return ut, ua, it, ia
 
 
+@observability.spanned("kernel.k5")
 def warp_fit_fused(user_table: torch.Tensor, user_acc: torch.Tensor,
                    item_table: torch.Tensor, item_acc: torch.Tensor,
                    batches: torch.Tensor, negatives: torch.Tensor,

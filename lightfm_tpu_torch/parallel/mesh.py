@@ -60,6 +60,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.distributed as dist
 
+from lightfm_tpu_torch import observability
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -249,7 +251,8 @@ def _collective(mesh: Mesh, block: torch.Tensor, op):
     counted in ``mesh.stats``.  The block stays on its device: NCCL and
     gloo both take CUDA tensors."""
     t0 = time.perf_counter()
-    out = op(block)
+    with observability.span("mesh.collective"):
+        out = op(block)
     mesh.stats["calls"] += 1
     mesh.stats["seconds"] += time.perf_counter() - t0
     mesh.stats["bytes"] += block.numel() * block.element_size()

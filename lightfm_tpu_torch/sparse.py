@@ -17,23 +17,27 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from lightfm_tpu_torch import observability
 
+
+@observability.spanned("fingerprint")
 def content_fingerprint(m) -> tuple:
     """Content checksum of a scipy matrix for identity-keyed caches.
 
     CRC32 over the raw bytes of ``data`` and ``indices`` (or COO ``col``),
     so in-place edits between calls -- position swaps and compensating
     edits included -- miss the cache instead of returning stale results.
+    The bytes hashed add to the counter ``fingerprint_bytes``.
     """
     parts = [getattr(m, "shape", None), getattr(m, "nnz", None)]
-    data = getattr(m, "data", None)
-    if data is not None and np.size(data):
-        parts.append(zlib.crc32(np.ascontiguousarray(data).view(np.uint8)))
     idx = getattr(m, "indices", None)
     if idx is None:
         idx = getattr(m, "col", None)
-    if idx is not None and np.size(idx):
-        parts.append(zlib.crc32(np.ascontiguousarray(idx).view(np.uint8)))
+    for a in (getattr(m, "data", None), idx):
+        if a is not None and np.size(a):
+            raw = np.ascontiguousarray(a).view(np.uint8)
+            observability.count("fingerprint_bytes", raw.nbytes)
+            parts.append(zlib.crc32(raw))
     return tuple(parts)
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import Hyperparams
 from lightfm_tpu_torch.losses import LOSS_STEPS, _lazy_reg, kos_slots
 from lightfm_tpu_torch.sparse import PaddedSortedRows
@@ -247,6 +248,7 @@ class GenericDraws(NamedTuple):
     kos_u: Optional[torch.Tensor] = None
 
 
+@observability.spanned("epoch.draws")
 def draw_generic_epoch(gen: torch.Generator, data: TrainData, hp: Hyperparams,
                        batch_size: int, mesh=None) -> GenericDraws:
     """Draw one generic epoch's :class:`GenericDraws` from ``gen`` on its
@@ -284,6 +286,7 @@ def _step_draws(draws: GenericDraws, b: int, batch, positives, hp: Hyperparams,
     return None
 
 
+@observability.spanned("epoch.shuffle")
 def _epoch_batches(data: TrainData, draws: GenericDraws, batch_size: int, mesh, shuffle: str):
     """This rank's ``[n_batches, 8, B_local]`` shuffled batches and its
     column slice of every batch.  No mesh: the global shuffle, whole
@@ -338,10 +341,11 @@ def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: H
     lazy_reg = _lazy_reg(hp)
     for b in range(shuffled.shape[0]):
         batch = _unpack_batch5(shuffled[b])
-        state = step(state, batch, data.user_feats, data.item_feats, data.positives,
-                     data.train_items, hp,
-                     _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh,
-                     placement=placement)
+        with observability.span("step"):
+            state = step(state, batch, data.user_feats, data.item_feats, data.positives,
+                         data.train_items, hp,
+                         _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh,
+                         placement=placement)
         if lazy_reg:
             state = maybe_fold_scales(state)
     if lazy_reg:
