@@ -30,12 +30,13 @@ import torch
 
 from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import Hyperparams
-from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
+from lightfm_tpu_torch.ops.ranking import predict_ranks_padded, recall, remember
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
 from lightfm_tpu_torch.sparse import (
     IdentityRows,
     PaddedRows,
     content_fingerprint,
+    content_key,
     identity_rows,
     pad_csr,
 )
@@ -978,12 +979,16 @@ class LightFM:
             fat_w2=fat_w2,
         )
 
-    def _memo_by_identity(self, kind: str, obj, build):
+    def _memo_by_identity(self, kind: str, obj, build, fingerprint=None):
         """Memoize ``build(obj)`` in the serving cache keyed by ``obj``'s
         identity (weakref-guarded against id reuse) plus a content checksum
         (in-place mutation misses instead of returning stale results), so
-        the per-epoch metric loop skips host padding and staging."""
-        key = (kind, id(obj), content_fingerprint(obj))
+        the per-epoch metric loop skips host padding and staging.  The
+        checksum is ``fingerprint`` when the caller has already taken one,
+        else ``content_fingerprint(obj)``."""
+        if fingerprint is None:
+            fingerprint = content_fingerprint(obj)
+        key = (kind, id(obj), fingerprint)
         hit = self._serving_cache.get(key)
         if hit is not None:
             ref, val = hit
@@ -1088,15 +1093,27 @@ class LightFM:
         return scores.cpu().numpy().astype(np.float32, copy=False)
 
     @observability.spanned("predict_rank.intersections")
-    def _check_test_train_intersections(self, test_mat, train_mat):
-        if train_mat is not None:
+    def _check_test_train_intersections(self, test_mat, train_mat, keys):
+        """Raise when ``test_mat`` and ``train_mat`` share interactions.  The
+        count is kept in the serving cache under both matrices' identities
+        and content ``keys`` (``sparse.content_key``), so the per-epoch
+        metric loop counts them once."""
+        if train_mat is None:
+            return
+        key = ("intersections", id(test_mat), id(train_mat), *keys)
+        n_intersections = recall(self._serving_cache, key, (test_mat, train_mat))
+        if n_intersections is None:
+            observability.count("intersection_misses")
             n_intersections = test_mat.multiply(train_mat).nnz
-            if n_intersections:
-                raise ValueError(
-                    "Test interactions matrix and train interactions "
-                    "matrix share %d interactions. This will cause "
-                    "incorrect evaluation, check your data split." % n_intersections
-                )
+            remember(self._serving_cache, key, (test_mat, train_mat), n_intersections)
+        else:
+            observability.count("intersection_hits")
+        if n_intersections:
+            raise ValueError(
+                "Test interactions matrix and train interactions "
+                "matrix share %d interactions. This will cause "
+                "incorrect evaluation, check your data split." % n_intersections
+            )
 
     @observability.spanned("predict_rank", call=True)
     def predict_rank(
@@ -1121,8 +1138,14 @@ class LightFM:
         if num_threads < 1:
             raise ValueError("Number of threads must be 1 or larger.")
 
+        # One content key per input matrix a call: the conversions, the
+        # intersection count and the staged rank inputs are all memoized
+        # under it, so nothing below hashes the matrices again.
+        test_key = content_key(test_interactions)
+        train_key = None if train_interactions is None else content_key(train_interactions)
         if check_intersections:
-            self._check_test_train_intersections(test_interactions, train_interactions)
+            self._check_test_train_intersections(
+                test_interactions, train_interactions, (test_key, train_key))
 
         with observability.span("predict_rank.inputs"):
             n_users, n_items = test_interactions.shape
@@ -1142,15 +1165,17 @@ class LightFM:
                 "test_csr",
                 test_interactions,
                 lambda m: m.tocsr().astype(CYTHON_DTYPE, copy=False),
+                test_key,
             )
             if train_interactions is None:
+                # Built here and never edited: its cache key is its content key.
+                train_key = ("empty_train", n_users, n_items)
                 train_interactions = self._serving_cache.setdefault(
-                    ("empty_train", n_users, n_items),
-                    sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE),
+                    train_key, sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE)
                 )
             else:
                 train_interactions = self._memo_by_identity(
-                    "train_csr", train_interactions, lambda m: m.tocsr()
+                    "train_csr", train_interactions, lambda m: m.tocsr(), train_key
                 )
             state = self._state._replace(item_table=self._serving_item_table())
             user_feats = self._pad_features_cached(user_features)
@@ -1160,6 +1185,7 @@ class LightFM:
         ranks_data = predict_ranks_padded(
             state, user_feats, item_feats, test_interactions, train_interactions,
             cache=self._serving_cache, user_placement=user_placement,
+            keys=(test_key, train_key),
         )
 
         with observability.span("predict_rank.result"):

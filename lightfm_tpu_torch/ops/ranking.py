@@ -39,7 +39,7 @@ from lightfm_tpu_torch.ops.representation import (
     f32_dot as _f32_dot,
     full_representations,
 )
-from lightfm_tpu_torch.sparse import IdentityRows, content_fingerprint, trim_rows
+from lightfm_tpu_torch.sparse import IdentityRows, content_key, trim_rows
 from lightfm_tpu_torch.state import ModelState
 
 # Above this catalog width the flat [user_block, n_items] score row is
@@ -371,28 +371,63 @@ def _build_tier(test_csr, train_csr, users: np.ndarray, user_block: int, device)
     )
 
 
+# Live entries of one kind that a serving cache keeps (insertion order =
+# age; the oldest go first).
+MEMO_CAP = 16
+
+
+def recall(cache, key, objs):
+    """The value kept under ``key`` by :func:`remember` for these very
+    objects, else None."""
+    hit = cache.get(key)
+    if hit is not None and all(r() is o for r, o in zip(hit[:-1], objs)):
+        return hit[-1]
+    return None
+
+
+def remember(cache, key, objs, value) -> None:
+    """Keep ``value`` in ``cache`` under ``key`` = (kind, the ids of
+    ``objs``, ...), weakref-guarded on ``objs`` against id reuse.  First
+    evicts the kind's entries for the same objects under another key (a
+    stale checksum) and those whose objects are gone (they would pin their
+    values), then the oldest of the kind beyond ``MEMO_CAP``."""
+    n = 1 + len(objs)
+    for k in [
+        k for k, v in cache.items()
+        if isinstance(k, tuple) and k[:1] == key[:1]
+        and ((k[:n] == key[:n] and k != key) or any(r() is None for r in v[:-1]))
+    ]:
+        del cache[k]
+    cache[key] = (*(weakref.ref(o) for o in objs), value)
+    mine = [k for k in cache if isinstance(k, tuple) and k[:1] == key[:1]]
+    for k in mine[: max(0, len(mine) - MEMO_CAP)]:
+        del cache[k]
+
+
 @observability.spanned("rank.prep")
-def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None):
+def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None, keys=None):
     """Tiered, device-staged rank inputs, memoized across metric calls.
 
     The cache key is the IDENTITY of the test/train matrices (weakref-
-    guarded against id reuse) plus shape/nnz and a content checksum, so the
-    per-epoch metric loop skips host padding and host->device copies after
-    the first call, and in-place mutation misses instead of going stale.
+    guarded against id reuse) plus shape/nnz and their content keys
+    (``keys``, else :func:`~lightfm_tpu_torch.sparse.content_key` of each),
+    so the per-epoch metric loop skips host padding and host->device copies
+    after the first call, and in-place mutation misses instead of going
+    stale.  ``keys`` may be the content keys of the matrices these were
+    converted from, since a conversion is a function of its source's content.
     """
     key = None
     if cache is not None:
+        if keys is None:
+            keys = (content_key(test_csr), content_key(train_csr))
         key = (
             "rank_prep", id(test_csr), id(train_csr),
-            test_csr.shape, test_csr.nnz, train_csr.nnz, user_block, str(device),
-            content_fingerprint(test_csr), content_fingerprint(train_csr),
+            test_csr.shape, test_csr.nnz, train_csr.nnz, user_block, str(device), *keys,
         )
-        hit = cache.get(key)
-        if hit is not None:
-            ref_t, ref_tr, tiers = hit
-            if ref_t() is test_csr and ref_tr() is train_csr:
-                observability.count("rank_prep_hits")
-                return tiers
+        tiers = recall(cache, key, (test_csr, train_csr))
+        if tiers is not None:
+            observability.count("rank_prep_hits")
+            return tiers
     observability.count("rank_prep_misses")
     # Only users WITH test interactions are ranked (template:1232-1323).
     users = np.flatnonzero(np.diff(test_csr.indptr) > 0)
@@ -403,26 +438,7 @@ def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None
         if len(tier_users)
     ]
     if cache is not None:
-        # Evict entries for the same matrices with a stale checksum, and
-        # entries whose matrices are gone (they would pin device tiers).
-        for k in [
-            k for k, v in cache.items()
-            if (isinstance(k, tuple) and k[:3] == key[:3] and k != key)
-            or (
-                isinstance(k, tuple) and k and k[0] == "rank_prep"
-                and isinstance(v, tuple) and len(v) == 3
-                and isinstance(v[0], weakref.ref)
-                and (v[0]() is None or v[1]() is None)
-            )
-        ]:
-            del cache[k]
-        cache[key] = (weakref.ref(test_csr), weakref.ref(train_csr), tiers)
-        # Cap live entries too; insertion order = age.
-        prep_keys = [
-            k for k in cache if isinstance(k, tuple) and k and k[0] == "rank_prep"
-        ]
-        for k in prep_keys[: max(0, len(prep_keys) - 16)]:
-            del cache[k]
+        remember(cache, key, (test_csr, train_csr), tiers)
     return tiers
 
 
@@ -444,12 +460,14 @@ def predict_ranks_padded(
     item_block: int = 8192,
     cache=None,
     user_placement=None,
+    keys=None,
 ) -> np.ndarray:
     """Ranks for every nnz of ``test_csr``, aligned with the CSR's data
     array (the layout the reference writes, `lightfm/lightfm.py:968-985`).
 
     Users are processed in train-degree tiers, and the host prep is
-    memoized in ``cache`` when given (see :func:`_prepare_rank_tiers`).
+    memoized in ``cache`` when given, under the matrices' content ``keys``
+    when given (see :func:`_prepare_rank_tiers`).
     ``state.item_table`` is the whole item table (the catalog every tier
     scores); ``state.user_table`` is the whole user table, or this rank's
     part of it with ``user_placement`` its
@@ -463,7 +481,7 @@ def predict_ranks_padded(
 
     device = state.user_table.device
     out = np.empty(test_csr.nnz, dtype=np.float32)
-    for tier in _prepare_rank_tiers(test_csr, train_csr, user_block, device, cache):
+    for tier in _prepare_rank_tiers(test_csr, train_csr, user_block, device, cache, keys):
         T = tier.test_idx.shape[1]
         ub = int(min(user_block, tier.user_ids.shape[0]))
         args = (

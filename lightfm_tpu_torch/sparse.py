@@ -20,6 +20,31 @@ import torch
 from lightfm_tpu_torch import observability
 
 
+def _crcs(arrays) -> list:
+    """CRC32 of each non-empty array's raw bytes, counted in
+    ``fingerprint_bytes``."""
+    out = []
+    for a in arrays:
+        if a is not None and np.size(a):
+            raw = np.ascontiguousarray(a).view(np.uint8)
+            observability.count("fingerprint_bytes", raw.nbytes)
+            out.append(zlib.crc32(raw))
+    return out
+
+
+def _first_attr(m, names):
+    for name in names:
+        a = getattr(m, name, None)
+        if a is not None:
+            return a
+    return None
+
+
+def _fingerprint(m) -> tuple:
+    return tuple([getattr(m, "shape", None), getattr(m, "nnz", None)]
+                 + _crcs((getattr(m, "data", None), _first_attr(m, ("indices", "col")))))
+
+
 @observability.spanned("fingerprint")
 def content_fingerprint(m) -> tuple:
     """Content checksum of a scipy matrix for identity-keyed caches.
@@ -29,16 +54,18 @@ def content_fingerprint(m) -> tuple:
     edits included -- miss the cache instead of returning stale results.
     The bytes hashed add to the counter ``fingerprint_bytes``.
     """
-    parts = [getattr(m, "shape", None), getattr(m, "nnz", None)]
-    idx = getattr(m, "indices", None)
-    if idx is None:
-        idx = getattr(m, "col", None)
-    for a in (getattr(m, "data", None), idx):
-        if a is not None and np.size(a):
-            raw = np.ascontiguousarray(a).view(np.uint8)
-            observability.count("fingerprint_bytes", raw.nbytes)
-            parts.append(zlib.crc32(raw))
-    return tuple(parts)
+    return _fingerprint(m)
+
+
+@observability.spanned("fingerprint")
+def content_key(m) -> tuple:
+    """:func:`content_fingerprint` of ``m`` and a CRC32 of the array that
+    places its entries in rows (``indptr``, or COO ``row``), under one
+    ``fingerprint`` span: a key that every content-derived result of a
+    ``predict_rank`` call can share, so each input matrix is hashed once a
+    call.  An edit to ``indptr`` alone changes it too.
+    """
+    return _fingerprint(m), *_crcs((_first_attr(m, ("indptr", "row")),))
 
 
 def _round_up(x: int, m: int) -> int:

@@ -172,9 +172,12 @@ def test_recording_keeps_the_layer_spans_nested_with_their_call(monkeypatch, fas
     assert parent["kernel.k1"] == "step.update" and parent["rank.tier"] == "predict_rank"
     assert parent["predict_rank.intersections"] == "predict_rank"
 
-    assert rec.counters["fingerprint_bytes"] == sum(hashed) > 0
+    # Each call hashes test and train once: data, indices and indptr.
+    per_call = sum(a.nbytes for m in (test, train) for a in (m.data, m.indices, m.indptr))
+    assert rec.counters["fingerprint_bytes"] == sum(hashed) == 2 * per_call
     assert rec.counters["rank_prep_misses"] == 1 and rec.counters["rank_prep_hits"] == 1
-    assert len(rec.named("fingerprint")) == len(hashed) // 2
+    assert rec.counters["intersection_misses"] == 1 and rec.counters["intersection_hits"] == 1
+    assert len(rec.named("fingerprint")) == len(hashed) // 3 == 4
     for i, s in enumerate(rec.spans):
         assert 0 <= rec.self_ns(i) <= s.end_ns - s.start_ns
 

@@ -3,8 +3,11 @@
 The port's kernel wrappers take their plain PyTorch versions for CPU
 tensors; the JAX side runs the Pallas kernel in interpret mode, as
 tests/test_pallas.py does.  Inputs are made with numpy from a seed and fed
-to both.
+to both.  The last tests hold ``predict_rank``'s content-keyed memo against
+a model with an empty serving cache.
 """
+
+import pickle
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from lightfm_tpu.sparse import identity_rows as jax_identity_rows
 from lightfm_tpu.state import ModelState as JaxModelState
 from lightfm_tpu.state import init_state as jax_init_state
 
+from lightfm_tpu_torch import LightFM, observability
 from lightfm_tpu_torch.interop import state_from_numpy
 from lightfm_tpu_torch.ops import rank_counts as rc
 from lightfm_tpu_torch.ops import ranking
@@ -241,3 +245,145 @@ def test_predict_ranks_padded_heavy_tier_matches_jax():
     )
     assert np.array_equal(got, again)
     assert sum(1 for k in cache if k[0] == "rank_prep") == 1
+
+
+# ---------------------------------------------------------------------------
+# predict_rank's content-keyed memo: one content key a matrix a call, under
+# which the conversions, the intersection count and the staged tiers are kept.
+# ---------------------------------------------------------------------------
+
+_MEMO_USERS, _MEMO_ITEMS = 30, 50
+
+
+def _memo_pair():
+    """Disjoint float32 CSRs, with rows planted for the in-place edits: train
+    row 0 is [10, 20, 30] beside test [25, 35]; train row 1 [33, 38] beside
+    test [5, 30]; train row 2 holds an explicit zero at test's item 7."""
+    rng = np.random.RandomState(11)
+    train_rows = {0: [10, 20, 30], 1: [33, 38], 2: [3, 7, 12]}
+    test_rows = {0: [25, 35], 1: [5, 30], 2: [7, 15]}
+    for u in range(3, _MEMO_USERS):
+        items = rng.permutation(_MEMO_ITEMS)
+        train_rows[u], test_rows[u] = sorted(items[:5]), sorted(items[5:7])
+
+    def csr(rows):
+        indptr = np.cumsum([0] + [len(rows[u]) for u in range(_MEMO_USERS)])
+        indices = np.concatenate([rows[u] for u in range(_MEMO_USERS)])
+        data = np.ones(len(indices), np.float32)
+        return sp.csr_matrix((data, indices, indptr), shape=(_MEMO_USERS, _MEMO_ITEMS))
+
+    train, test = csr(train_rows), csr(test_rows)
+    train.data[6] = 0.0  # (2, 7): stored, but no interaction
+    return train, test
+
+
+@pytest.fixture(scope="module")
+def memo_model():
+    train, _ = _memo_pair()
+    return LightFM(loss="warp", no_components=8, random_state=3, device="cpu").fit(
+        train, epochs=1)
+
+
+def _fresh(model):
+    """The same model with an empty serving cache."""
+    return pickle.loads(pickle.dumps(model))
+
+
+def _structure_bytes(m):
+    """Bytes of the arrays a content key hashes."""
+    if sp.isspmatrix_coo(m):
+        return m.data.nbytes + m.col.nbytes + m.row.nbytes
+    return m.data.nbytes + m.indices.nbytes + m.indptr.nbytes
+
+
+@pytest.mark.parametrize("test_format,train_format", [
+    ("csr32", "csr32"),  # both conversions no-ops
+    ("coo32", "csr64"),
+    ("csr64", "coo32"),
+])
+def test_a_repeated_predict_rank_hashes_each_matrix_once_and_reuses_the_count(
+        memo_model, monkeypatch, test_format, train_format):
+    def fmt(m, f):
+        m = m.astype(np.float64 if f.endswith("64") else np.float32)
+        return m.tocoo() if f.startswith("coo") else m
+
+    train, test = _memo_pair()
+    train, test = fmt(train, train_format), fmt(test, test_format)
+    model = _fresh(memo_model)
+    multiplied = []
+    multiply = type(test).multiply
+
+    def spy(self, other):
+        multiplied.append(1)
+        return multiply(self, other)
+
+    monkeypatch.setattr(type(test), "multiply", spy)
+    with observability.recording() as first:
+        a = model.predict_rank(test, train_interactions=train)
+    with observability.recording() as second:
+        b = model.predict_rank(test, train_interactions=train)
+    assert len(multiplied) == 1
+    assert first.counters["intersection_misses"] == 1 and "intersection_hits" not in first.counters
+    assert second.counters["intersection_hits"] == 1 and "intersection_misses" not in second.counters
+    assert second.counters["rank_prep_hits"] == 1 and "rank_prep_misses" not in second.counters
+    for rec in (first, second):
+        assert rec.counters["fingerprint_bytes"] == _structure_bytes(test) + _structure_bytes(train)
+        assert len(rec.named("fingerprint")) == 2
+        (check,) = rec.named("predict_rank.intersections")
+        assert not [s for s in rec.named("fingerprint")
+                    if check.start_ns <= s.start_ns < check.end_ns]
+    want = _fresh(memo_model).predict_rank(test, train_interactions=train)
+    for got in (a, b):
+        np.testing.assert_array_equal(got.indptr, want.indptr)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        assert got.data.tobytes() == want.data.tobytes()
+
+
+def _edit_indices(train):
+    train.indices[1] = 25  # train (0, 20) -> (0, 25), a test item of row 0
+
+
+def _edit_data(train):
+    train.data[6] = 1.0  # the explicit zero at (2, 7) becomes an interaction
+
+
+def _edit_indptr(train):
+    train.indptr[1] -= 1  # train (0, 30) -> (1, 30), a test item of row 1
+
+
+@pytest.mark.parametrize("edit", [_edit_indices, _edit_data, _edit_indptr],
+                         ids=["indices", "data", "indptr"])
+def test_an_edit_in_place_that_makes_an_overlap_raises_as_for_a_fresh_model(memo_model, edit):
+    train, test = _memo_pair()
+    model = _fresh(memo_model)
+    for _ in range(2):
+        model.predict_rank(test, train_interactions=train)
+    edit(train)
+    with pytest.raises(ValueError, match="share 1 interactions") as want:
+        _fresh(memo_model).predict_rank(test, train_interactions=train)
+    for counter in ("intersection_misses", "intersection_hits"):
+        with observability.recording() as rec, pytest.raises(ValueError) as got:
+            model.predict_rank(test, train_interactions=train)
+        assert str(got.value) == str(want.value)
+        assert rec.counters == {**rec.counters, counter: 1}
+        assert "rank_prep_hits" not in rec.counters and "rank_prep_misses" not in rec.counters
+    # The staged tiers follow the edit too.
+    got = model.predict_rank(test, train_interactions=train, check_intersections=False)
+    fresh = _fresh(memo_model).predict_rank(test, train_interactions=train,
+                                            check_intersections=False)
+    assert got.data.tobytes() == fresh.data.tobytes()
+
+
+@pytest.mark.parametrize("unchecked", ["check_intersections=False", "no train"])
+def test_predict_rank_without_a_check_counts_no_intersections(memo_model, unchecked):
+    train, test = _memo_pair()
+    model = _fresh(memo_model)
+    if unchecked == "no train":
+        kwargs = {}
+    else:
+        kwargs = {"train_interactions": train, "check_intersections": False}
+    with observability.recording() as rec:
+        for _ in range(2):
+            model.predict_rank(test, **kwargs)
+    assert not {"intersection_hits", "intersection_misses"} & set(rec.counters)
+    assert rec.counters["rank_prep_misses"] == 1 and rec.counters["rank_prep_hits"] == 1
