@@ -38,6 +38,15 @@ every table read gathers the whole rows over the model axis, and each rank
 applies the touches of the rows or columns it holds; the lazy-L2
 statistics of those touches are summed over the model axis in rank order.
 
+Each step marks its parts with the fast path's span names: ``step.score``
+(representations, scores, the sampling decisions and the loss),
+``step.grads`` (gradients and their per-feature touches), ``step.update``
+(the sparse optimizer pass of both tables) and, with L2 on, ``step.l2``
+(the scale bump; the generic epoch marks the rescale guard that follows
+it with a second ``step.l2``).  Counters, from shapes alone:
+``update_touches.item`` and ``update_touches.user`` (touch slots a step
+hands the optimizer, padding and examples that do not update included).
+
 The fast path's steps live in :mod:`lightfm_tpu_torch.fast_warp`.
 """
 
@@ -47,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs, with_unit_bias
 from lightfm_tpu_torch.ops.updates import sparse_update
@@ -180,6 +190,8 @@ def _apply_touches(state, side, feats, touches, over, alpha, kw, placement):
     ``TablePlacement``; None: the whole table).  Returns the state and the
     lazy-L2 statistics of the touches applied here."""
     idx, w, g, mask = touches
+    observability.count(f"update_touches.{side}", idx.shape[0] + sum(
+        s[0].shape[0] * feats.over_idx.shape[2] * feats.n_chunks for s in over))
     idx, mask, g, own_kw = _own(placement, idx, mask, g)
     table, acc, mom, lr, cnt = sparse_update(
         getattr(state, f"{side}_table"), getattr(state, f"{side}_acc"),
@@ -197,7 +209,8 @@ def _apply_touches(state, side, feats, touches, over, alpha, kw, placement):
 
 def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, upd_mask,
                  placement=None):
-    """One sparse optimizer pass per table (plus chunked overflow tails).
+    """One sparse optimizer pass per table (plus chunked overflow tails),
+    then, with L2 on, the scale bump.
     Under a sharded ``placement`` a side's statistics come from the touches
     this rank applied and are summed over the model axis in rank order, so
     every rank bumps the same scales; a replicated side's are every
@@ -217,22 +230,25 @@ def _run_updates(state, hp, item_feats, item_touches, user_feats, user_touches, 
     item_over = [t[1] for t in item_touches if t[1] is not None]
     user_flat, user_over = user_touches
     stats = {}
-    state, stats["item"] = _apply_touches(state, "item", item_feats, item_flat, item_over,
-                                          hp.item_alpha, kw, _side(placement, "item"))
-    state, stats["user"] = _apply_touches(state, "user", user_feats, user_flat,
-                                          [user_over] if user_over is not None else [],
-                                          hp.user_alpha, kw, _side(placement, "user"))
+    with observability.span("step.update"):
+        state, stats["item"] = _apply_touches(state, "item", item_feats, item_flat, item_over,
+                                              hp.item_alpha, kw, _side(placement, "item"))
+        state, stats["user"] = _apply_touches(state, "user", user_feats, user_flat,
+                                              [user_over] if user_over is not None else [],
+                                              hp.user_alpha, kw, _side(placement, "user"))
     if not lazy:
         return state
-    split = [s for s in stats if _side(placement, s) is not None and _side(placement, s).sharded]
-    if split:
-        from lightfm_tpu_torch.parallel.mesh import sum_over_model
+    with observability.span("step.l2"):
+        split = [s for s in stats
+                 if _side(placement, s) is not None and _side(placement, s).sharded]
+        if split:
+            from lightfm_tpu_torch.parallel.mesh import sum_over_model
 
-        summed = sum_over_model(placement.mesh, *[x for s in split for x in stats[s]])
-        stats.update({s: summed[2 * k:2 * k + 2] for k, s in enumerate(split)})
-    (lr_i, cnt_i), (lr_u, cnt_u) = stats["item"], stats["user"]
-    n_updates = torch.sum(upd_mask.to(torch.float32))
-    return _update_scales(state, hp, lr_i + lr_u, cnt_i + cnt_u, n_updates)
+            summed = sum_over_model(placement.mesh, *[x for s in split for x in stats[s]])
+            stats.update({s: summed[2 * k:2 * k + 2] for k, s in enumerate(split)})
+        (lr_i, cnt_i), (lr_u, cnt_u) = stats["item"], stats["user"]
+        n_updates = torch.sum(upd_mask.to(torch.float32))
+        return _update_scales(state, hp, lr_i + lr_u, cnt_i + cnt_u, n_updates)
 
 
 def _gather_examples(mesh, *per_example):
@@ -243,7 +259,8 @@ def _gather_examples(mesh, *per_example):
         return per_example
     from lightfm_tpu_torch.parallel.mesh import all_gather_rows
 
-    return all_gather_rows(mesh, *per_example)
+    with observability.span("step.gather"):
+        return all_gather_rows(mesh, *per_example)
 
 
 def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, loss, upd,
@@ -255,10 +272,11 @@ def _apply_pointwise(state, hp, user_feats, item_feats, uid, iid, u_rep, i_rep, 
     is the whole batch's, on the part of each table this rank holds under
     ``placement``."""
     uid, iid, u_rep, i_rep, loss, upd = _gather_examples(mesh, uid, iid, u_rep, i_rep, loss, upd)
-    g_item = loss[:, None] * with_unit_bias(u_rep)
-    g_user = loss[:, None] * with_unit_bias(i_rep)
-    item_t = _flatten_touches(item_feats, iid, g_item, upd)
-    user_t = _flatten_touches(user_feats, uid, g_user, upd)
+    with observability.span("step.grads"):
+        g_item = loss[:, None] * with_unit_bias(u_rep)
+        g_user = loss[:, None] * with_unit_bias(i_rep)
+        item_t = _flatten_touches(item_feats, iid, g_item, upd)
+        user_t = _flatten_touches(user_feats, uid, g_user, upd)
     return _run_updates(state, hp, item_feats, [item_t], user_feats, user_t, upd, placement)
 
 
@@ -270,11 +288,12 @@ def _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_iid, neg_iid,
     a ``mesh`` as :func:`_apply_pointwise`."""
     uid, pos_iid, neg_iid, u_rep, p_rep, n_rep, loss, upd = _gather_examples(
         mesh, uid, pos_iid, neg_iid, u_rep, p_rep, n_rep, loss, upd)
-    lu = loss[:, None] * with_unit_bias(u_rep)
-    pos_t = _flatten_touches(item_feats, pos_iid, -lu, upd)
-    neg_t = _flatten_touches(item_feats, neg_iid, lu, upd)
-    g_user = loss[:, None] * with_unit_bias(n_rep - p_rep)
-    user_t = _flatten_touches(user_feats, uid, g_user, upd)
+    with observability.span("step.grads"):
+        lu = loss[:, None] * with_unit_bias(u_rep)
+        pos_t = _flatten_touches(item_feats, pos_iid, -lu, upd)
+        neg_t = _flatten_touches(item_feats, neg_iid, lu, upd)
+        g_user = loss[:, None] * with_unit_bias(n_rep - p_rep)
+        user_t = _flatten_touches(user_feats, uid, g_user, upd)
     return _run_updates(state, hp, item_feats, [pos_t, neg_t], user_feats, user_t, upd,
                         placement)
 
@@ -288,15 +307,16 @@ def logistic_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
                   train_items, hp: Hyperparams, draws=None, mesh=None,
                   placement=None) -> ModelState:
     """Batched sigmoid regression step (``fit_logistic``, template:694-781)."""
-    u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
-                                 _side(placement, "user"))
-    i_rep = batch_representation(state.item_table, item_feats, batch.item_ids, i_scale,
-                                 _side(placement, "item"))
-    pred = torch.sigmoid(score_pairs(u_rep, i_rep))
-    # Any value <= 0 is a negative interaction (template:751-758).
-    y01 = (batch.y > 0).to(torch.float32)
-    loss = batch.weight * (pred - y01)
+    with observability.span("step.score"):
+        u_scale, i_scale = _scales(state, hp)
+        u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                     _side(placement, "user"))
+        i_rep = batch_representation(state.item_table, item_feats, batch.item_ids, i_scale,
+                                     _side(placement, "item"))
+        pred = torch.sigmoid(score_pairs(u_rep, i_rep))
+        # Any value <= 0 is a negative interaction (template:751-758).
+        y01 = (batch.y > 0).to(torch.float32)
+        loss = batch.weight * (pred - y01)
     return _apply_pointwise(state, hp, user_feats, item_feats, batch.user_ids,
                             batch.item_ids, u_rep, i_rep, loss, batch.valid, mesh, placement)
 
@@ -362,30 +382,31 @@ def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives
     """Batched WARP step (``fit_warp``, template:784-912).  ``draws``: the
     ``[K, B]`` negative item ids.  The positive rides the negatives' gather
     as slot 0 of ``[K+1, B]``."""
-    upd_base = batch.valid & (batch.y > 0)  # template:831
-    u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
-                                 _side(placement, "user"))
+    with observability.span("step.score"):
+        upd_base = batch.valid & (batch.y > 0)  # template:831
+        u_scale, i_scale = _scales(state, hp)
+        u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                     _side(placement, "user"))
 
-    B = batch.user_ids.shape[0]
-    K = draws.shape[0]
-    neg_ids = draws.to(batch.item_ids.dtype)
-    all_ids = torch.cat([batch.item_ids[None, :], neg_ids], dim=0)
-    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale,
-                                     _side(placement, "item"))
-    preds = _score_candidates(u_rep, reps_flat, K + 1)
-    pos_pred, neg_pred = preds[0], preds[1:]
-    p_rep = reps_flat[:B]
+        B = batch.user_ids.shape[0]
+        K = draws.shape[0]
+        neg_ids = draws.to(batch.item_ids.dtype)
+        all_ids = torch.cat([batch.item_ids[None, :], neg_ids], dim=0)
+        reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1),
+                                         i_scale, _side(placement, "item"))
+        preds = _score_candidates(u_rep, reps_flat, K + 1)
+        pos_pred, neg_pred = preds[0], preds[1:]
+        p_rep = reps_flat[:B]
 
-    violates = neg_pred > pos_pred[None, :] - 1.0  # template:875
-    cand = violates & ~in_positives_slots(positives, batch.user_ids, neg_ids)  # :878
-    found = cand.any(dim=0)
-    j = _first_true(cand, 0)
-    rank_weight = _rank_weight(j, item_feats.n_rows)
-    neg_id = _select_slot(neg_ids, j)
-    n_rep = _pick_flat(reps_flat, j + 1, B)
+        violates = neg_pred > pos_pred[None, :] - 1.0  # template:875
+        cand = violates & ~in_positives_slots(positives, batch.user_ids, neg_ids)  # :878
+        found = cand.any(dim=0)
+        j = _first_true(cand, 0)
+        rank_weight = _rank_weight(j, item_feats.n_rows)
+        neg_id = _select_slot(neg_ids, j)
+        n_rep = _pick_flat(reps_flat, j + 1, B)
 
-    loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
+        loss = torch.clamp(batch.weight * rank_weight, max=MAX_LOSS)  # template:881-885
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
                            neg_id, u_rep, p_rep, n_rep, loss, upd_base & found, mesh, placement)
 
@@ -397,23 +418,25 @@ def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
     ``[B, T]`` positions into ``train_items``; negatives come from the
     empirical item distribution (template:1123-1127), rejecting the user's
     positives, and fall through to the last draw."""
-    upd = batch.valid & (batch.y > 0)  # template:1116
-    T = draws.shape[1]
-    cand = train_items[draws.long()]  # [B, T]
-    ok = ~in_positives(positives, batch.user_ids, cand)
-    j = torch.where(ok.any(-1), _first_true(ok, -1), T - 1)
-    neg_id = torch.gather(cand, 1, j[:, None])[:, 0]
+    with observability.span("step.score"):
+        upd = batch.valid & (batch.y > 0)  # template:1116
+        T = draws.shape[1]
+        cand = train_items[draws.long()]  # [B, T]
+        ok = ~in_positives(positives, batch.user_ids, cand)
+        j = torch.where(ok.any(-1), _first_true(ok, -1), T - 1)
+        neg_id = torch.gather(cand, 1, j[:, None])[:, 0]
 
-    u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
-                                 _side(placement, "user"))
-    B = batch.user_ids.shape[0]
-    all_ids = torch.cat([batch.item_ids[None, :], neg_id[None, :].to(batch.item_ids.dtype)], dim=0)
-    reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1), i_scale,
-                                     _side(placement, "item"))
-    preds = _score_candidates(u_rep, reps_flat, 2)
-    p_rep, n_rep = reps_flat[:B], reps_flat[B:]
-    loss = batch.weight * (1.0 - torch.sigmoid(preds[0] - preds[1]))  # template:1158
+        u_scale, i_scale = _scales(state, hp)
+        u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,
+                                     _side(placement, "user"))
+        B = batch.user_ids.shape[0]
+        all_ids = torch.cat([batch.item_ids[None, :], neg_id[None, :].to(batch.item_ids.dtype)],
+                            dim=0)
+        reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1),
+                                         i_scale, _side(placement, "item"))
+        preds = _score_candidates(u_rep, reps_flat, 2)
+        p_rep, n_rep = reps_flat[:B], reps_flat[B:]
+        loss = batch.weight * (1.0 - torch.sigmoid(preds[0] - preds[1]))  # template:1158
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
                            neg_id, u_rep, p_rep, n_rep, loss, upd, mesh, placement)
 
@@ -434,41 +457,43 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
     user's positives with replacement, takes the min(k, #sampled)-th best
     as the positive, then runs the WARP negative search.  No sample
     weights (`lightfm/lightfm.py:385-388`)."""
-    slots, neg_ids = draws
-    uid = batch.user_ids
-    B = uid.shape[0]
-    n_draw = slots.shape[0]
-    uid_l = uid.long()
-    lens = positives.lengths[uid_l]  # [B]
-    upd_base = batch.valid & (lens > 0)  # template:972-973
+    with observability.span("step.score"):
+        slots, neg_ids = draws
+        uid = batch.user_ids
+        B = uid.shape[0]
+        n_draw = slots.shape[0]
+        uid_l = uid.long()
+        lens = positives.lengths[uid_l]  # [B]
+        upd_base = batch.valid & (lens > 0)  # template:972-973
 
-    u_scale, i_scale = _scales(state, hp)
-    u_rep = batch_representation(state.user_table, user_feats, uid, u_scale,
-                                 _side(placement, "user"))
+        u_scale, i_scale = _scales(state, hp)
+        u_rep = batch_representation(state.user_table, user_feats, uid, u_scale,
+                                     _side(placement, "user"))
 
-    user_rows = positives.idx[uid_l]  # [B, P] sorted positives
-    ar = torch.arange(B, device=uid.device)
-    cand = user_rows[ar[None, :], slots.long()]  # [n, B]
-    cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # clamp the sentinel of empty rows
-    pc_flat = batch_representation(state.item_table, item_feats, cand.reshape(-1), i_scale,
-                                   _side(placement, "item"))
-    scores = _score_candidates(u_rep, pc_flat, n_draw)  # [n, B]
+        user_rows = positives.idx[uid_l]  # [B, P] sorted positives
+        ar = torch.arange(B, device=uid.device)
+        cand = user_rows[ar[None, :], slots.long()]  # [n, B]
+        cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # clamp the sentinel of empty rows
+        pc_flat = batch_representation(state.item_table, item_feats, cand.reshape(-1), i_scale,
+                                       _side(placement, "item"))
+        scores = _score_candidates(u_rep, pc_flat, n_draw)  # [n, B]
 
-    no_pos = torch.clamp(lens, max=hp.n)  # template:976
-    draw_valid = torch.arange(n_draw, device=uid.device)[:, None] < no_pos[None, :]
-    keys = torch.where(draw_valid, -scores, torch.full_like(scores, float("inf")))
-    order = torch.argsort(keys, dim=0, stable=True)
-    pick = torch.clamp(torch.clamp(no_pos, max=hp.k) - 1, min=0)  # template:1002
-    sel = order[pick.long(), ar]
+        no_pos = torch.clamp(lens, max=hp.n)  # template:976
+        draw_valid = torch.arange(n_draw, device=uid.device)[:, None] < no_pos[None, :]
+        keys = torch.where(draw_valid, -scores, torch.full_like(scores, float("inf")))
+        order = torch.argsort(keys, dim=0, stable=True)
+        pick = torch.clamp(torch.clamp(no_pos, max=hp.k) - 1, min=0)  # template:1002
+        sel = order[pick.long(), ar]
 
-    pos_id = cand[sel, ar]
-    pos_pred = scores[sel, ar]
-    p_rep = _pick_flat(pc_flat, sel, B)
+        pos_id = cand[sel, ar]
+        pos_pred = scores[sel, ar]
+        p_rep = _pick_flat(pc_flat, sel, B)
 
-    neg_id, n_rep, found, rank_weight = _warp_negative_search(
-        state, item_feats, positives, uid, u_rep, pos_pred, neg_ids.to(uid.dtype), hp, placement
-    )
-    loss = torch.clamp(rank_weight, max=MAX_LOSS)  # template:1039-1043 (no weight)
+        neg_id, n_rep, found, rank_weight = _warp_negative_search(
+            state, item_feats, positives, uid, u_rep, pos_pred, neg_ids.to(uid.dtype), hp,
+            placement,
+        )
+        loss = torch.clamp(rank_weight, max=MAX_LOSS)  # template:1039-1043 (no weight)
     return _apply_pairwise(state, hp, user_feats, item_feats, uid, pos_id, neg_id,
                            u_rep, p_rep, n_rep, loss, upd_base & found, mesh,
                            placement)

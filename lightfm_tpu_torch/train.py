@@ -346,10 +346,12 @@ def generic_epoch(state: ModelState, data: TrainData, draws: GenericDraws, hp: H
                          data.train_items, hp,
                          _step_draws(draws, b, batch, data.positives, hp, cols), mesh=mesh,
                          placement=placement)
-        if lazy_reg:
-            state = maybe_fold_scales(state)
+            if lazy_reg:
+                with observability.span("step.l2"):
+                    state = maybe_fold_scales(state)
     if lazy_reg:
-        state = fold_scales(state)
+        with observability.span("epoch.l2_fold"):
+            state = fold_scales(state)
     return state
 
 

@@ -150,11 +150,13 @@ def _random_arrays(n_items, n_users, D, adadelta, seed):
     return out
 
 
-def _tag_csr(n, n_tags=30, seed=2):
+def _tag_csr(n, n_tags=30, seed=2, identity=True):
     rng = np.random.RandomState(seed)
     rows = np.repeat(np.arange(n), 3)
     tags = sp.coo_matrix((np.ones(rows.size), (rows, rng.randint(0, n_tags, rows.size))),
                          shape=(n, n_tags))
+    if not identity:
+        return tags.tocsr().astype(np.float32)
     return sp.hstack([sp.identity(n), tags], format="csr", dtype=np.float32)
 
 
@@ -167,6 +169,7 @@ EPOCH_CASES = [
     ("warp", "adagrad", 0.5, False),  # folds mid-epoch (scale past MAX_REG_SCALE)
     ("bpr", "adagrad", 1e-3, True),  # item features
     ("warp-kos", "adadelta", 0.0, False),
+    ("warp", "adagrad", 1e-6, "tags"),  # upstream's hybrid model: tags only, item_alpha
 ]
 
 
@@ -179,7 +182,7 @@ def test_one_epoch_matches_jax(loss, schedule, alpha, hybrid):
               user_alpha=alpha, max_sampled=10, bpr_tries=8, n=5, k=2)
     jhp, thp = jax_config.Hyperparams(**kw), config.Hyperparams(**kw)
     if hybrid:
-        csr = _tag_csr(ni)
+        csr = _tag_csr(ni, identity=hybrid != "tags")
         ji = lightfm_tpu.sparse.pad_csr(csr, pad_multiple=8)
         ti = pad_csr(csr, pad_multiple=8, device="cpu")
     else:

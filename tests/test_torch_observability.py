@@ -299,3 +299,59 @@ def test_the_log_is_bounded_but_a_recording_keeps_its_body(monkeypatch):
             with observability.span("bounded"):
                 pass
     assert len(observability._log) <= 64
+
+
+def _tagged_problem():
+    """A WARP problem with items described by 1-5 of 40 tags (padded to 8)."""
+    rng = np.random.RandomState(4)
+    inter = sp.coo_matrix((np.ones(1200, np.float32),
+                           (rng.randint(0, 150, 1200), rng.randint(0, 90, 1200))),
+                          shape=(150, 90))
+    inter.sum_duplicates()
+    inter.data[:] = 1.0
+    n_tags = rng.randint(1, 6, 90)
+    rows = np.repeat(np.arange(90), n_tags)
+    cols = np.concatenate([rng.choice(40, k, replace=False) for k in n_tags])
+    tags = sp.csr_matrix((np.ones(rows.size, np.float32), (rows, cols)), shape=(90, 40))
+    return inter, tags
+
+
+@pytest.mark.parametrize("alpha", [0.0, 1e-6])
+def test_generic_step_marks_its_parts_and_counts_its_shapes(alpha):
+    inter, tags = _tagged_problem()
+    B, epochs = 256, 2
+    model = LightFM(loss="warp", no_components=6, item_alpha=alpha, batch_size=B,
+                    random_state=3, device="cpu")
+    with observability.recording() as rec:
+        model.fit(inter, item_features=tags, epochs=epochs)
+    assert model._staged_fast is False
+    steps = epochs * model._staged_train_data.packed.shape[1] // B
+    P = model._staged_train_data.item_feats.max_nnz
+    assert P == 8
+    parts = ("step", "step.score", "step.grads", "step.update")
+    assert [len(rec.named(p)) for p in parts] == [steps] * 4
+    # With L2 two a step: the scale bump that ends the step, the guard after it.
+    assert len(rec.named("step.l2")) == (2 * steps if alpha else 0)
+    assert len(rec.named("epoch.l2_fold")) == (epochs if alpha else 0)
+    parent = {s.name: rec.spans[s.parent].name for s in rec.spans if s.parent is not None}
+    for part in parts[1:] + (("step.l2",) if alpha else ()):
+        assert parent[part] == "step"
+    if alpha:
+        assert parent["epoch.l2_fold"] == "fit"
+    assert rec.counters["update_touches.item"] == steps * 2 * B * P
+    assert rec.counters["update_touches.user"] == steps * B
+
+
+def test_fast_path_span_counts_are_unchanged(fast_data):
+    train, _ = fast_data
+    model = _fast_model()
+    with observability.recording() as rec:
+        model.fit(train, epochs=2)
+    assert model._staged_fast
+    steps = 2 * model._staged_train_data.packed.shape[1] // model._staged_batch_size
+    counts = {n: len(rec.named(n)) for n in ("step", "step.score", "step.grads", "step.update",
+                                               "kernel.k1", "step.l2", "epoch.l2_fold")}
+    assert counts == {"step": steps, "step.score": steps, "step.grads": steps,
+                      "step.update": steps, "kernel.k1": 2 * steps, "step.l2": 0,
+                      "epoch.l2_fold": 0}
+    assert not {"update_touches.item", "update_touches.user"} & set(rec.counters)
