@@ -15,7 +15,10 @@ adagrad update kernel (K1, and K4 over it) against its plain version on
 Zipf, uniform and hot-row touches at the training step's shape and on
 touches laid out against the kernel's segments at four widths, with
 CUDA-event, profiler and host times for each, the gradient-sums kernel
-(K3) on the same touch layouts, and trains with ``LightFM.fit`` at the
+(K3) on the same touch layouts, the generic step's adagrad kernel
+(``touch_adagrad_update``, phase 4c) at the ``warp-hybrid-l2`` cell's item
+and user touches, whole and split as the table partitions split them, with
+one epoch of a generic hybrid fit through it, and trains with ``LightFM.fit`` at the
 ``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
 users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
 epochs with a train-sample AUC guard, a same-seed determinism check, one
@@ -27,7 +30,8 @@ with the item features through the rank kernels, determinism, one BPR
 epoch and its own step spans.  Last, the whole-fit WARP kernel (K5)
 runs a 30-epoch fit at the size of the synthetic MovieLens 100k (943 users
 x 1,682 items, D=10) in one launch, against its plain version.  Phase 8
-drives the generic training path (plain PyTorch, no hand-written kernel):
+drives the generic training path (PyTorch, with its adagrad pass through
+``touch_adagrad_update`` and no other hand-written kernel):
 the quickstart's 30-epoch WARP fit at that size with ``fast_path="auto"``
 (quality against the port's own CPU fit), one epoch of every loss and
 schedule (and L2) on the card against the CPU with the same draws and
@@ -866,6 +870,37 @@ def update_tolerance(torch, table, acc, sidx, wg):
     return t_tol, a_tol
 
 
+def chunk_tolerance(torch, table, acc, skeys, order, wg):
+    """The step over the touches keyed in ``[0, R)``, in float64 (the sums
+    and ``lr * rsqrt(acc)``, with fp32 ``lr``), and a per-element bound on
+    ``touch_adagrad_update``'s distance from it.  The kernel sums a row's
+    touches in chunks of ``au.CHUNK`` in order, then the row's n_c chunk
+    sums (one by one, or in a tree no deeper than that): each sum is within
+    (CHUNK + n_c) * 2^-24 * sum|terms| of the exact one.  The bound takes
+    twice that, plus 4 ulps of the step (``rsqrtf``'s 2 and the two
+    rounded multiplies) and one of each result.  Returns ``(table, acc,
+    t_tol, a_tol)``, all float64."""
+    from lightfm_tpu_torch.ops import adagrad_update as au
+
+    R, W = table.shape
+    live = (skeys >= 0) & (skeys < R)
+    rows = skeys[live].long()
+    g = wg[order[live]].double()
+    n = torch.zeros(R, dtype=torch.float64, device=table.device)
+    n.index_add_(0, rows, torch.ones_like(rows, dtype=torch.float64))
+    s = torch.zeros((R, W), dtype=torch.float64, device=table.device).index_add_(0, rows, g)
+    s_abs = torch.zeros_like(s).index_add_(0, rows, g.abs())
+    s2 = torch.zeros_like(s).index_add_(0, rows, g * g)
+    eps = 2.0**-23
+    sums = (au.CHUNK + torch.ceil(n / au.CHUNK))[:, None] * eps
+    lr_local = float(np.float32(LR)) * torch.rsqrt(acc.double())
+    step = lr_local * s
+    t_exact, a_exact = table.double() - step, acc.double() + s2
+    t_tol = lr_local * sums * s_abs + 4 * eps * step.abs() + eps * t_exact.abs()
+    a_tol = sums * s2 + eps * a_exact.abs()
+    return t_exact, a_exact, t_tol, a_tol
+
+
 def update_bound_ms(M: int, W: int, distinct: int) -> float:
     """K1's least time: the touches (ids and gradients) read once, and table
     and acc read and written once for each distinct touched row."""
@@ -1153,6 +1188,212 @@ def grad_sums_checks(torch, seed: int) -> dict:
             refused = True
         check(refused, "K3 refuses a gradient width that is not a multiple of 4 on the card")
     return {"worst": worst, "cases": out}
+
+
+# The generic step's adagrad pass (phase 4c) at warp-hybrid-l2's shapes: a
+# step's item touches (the 8 tag slots of each example's positive and
+# negative item, 2 x 8 x 131,072 = 2,097,152) on 2,048 tag rows, W = 32
+# (D = 30), the hottest tag ~65,000 slots; the user touches, one a batch row, on 200,000
+# users.  About a third of the item slots are live (real tags of examples
+# that update), half the user rows.
+HYB_TAGS, HYB_W, HYB_ITEM_SLOTS, HYB_ZIPF = 2048, 32, 16 * TRAIN_BATCH, 0.7
+
+
+def hybrid_touches(rng, which: str):
+    """(R, idx, mask) of one table's touches in touch order at the hybrid
+    cell's shape: ``"item"``: tag rows by a Zipf law of exponent HYB_ZIPF
+    (the hottest ~3% of the slots), a third live; ``"user"``: uniform over
+    TRAIN_USERS, one a batch row, half live."""
+    if which == "item":
+        p = 1.0 / np.arange(1, HYB_TAGS + 1) ** HYB_ZIPF
+        idx = rng.choice(HYB_TAGS, HYB_ITEM_SLOTS, p=p / p.sum())
+        return HYB_TAGS, idx, rng.rand(HYB_ITEM_SLOTS) < 1 / 3
+    return TRAIN_USERS, rng.randint(0, TRAIN_USERS, TRAIN_BATCH), rng.rand(TRAIN_BATCH) < 0.5
+
+
+def touch_update_checks(torch, seed: int) -> dict:
+    """Phase 4c: ``touch_adagrad_update``, the generic step's adagrad pass,
+    against its plain version at the hybrid cell's item and user shapes
+    (``hybrid_touches``), each fed the keys ``sparse_update`` builds
+    (``touch_order``): two launches bitwise equal; kernel and plain within
+    the summation-order bound, and the kernel within its chunked order's
+    bound of the float64 step (``chunk_tolerance``); untouched rows bitwise
+    unchanged; the live
+    touches alone, each ``"rows"`` part of two (``TablePlacement.own``) and
+    each ``"components"`` part of 2, 8 and 16 columns bitwise the whole
+    call's rows and columns; an all-masked call a no-op.  Times: the kernel
+    (CUDA events and profiler), the sort, the plain version and PyTorch's
+    ``index_put_`` pair the kernel replaced (``library_ms``), beside the
+    bound on the live touches (``update_bound_ms``).  Then one epoch of a
+    generic hybrid fit (tags, ``item_alpha``) under a recording: every step
+    launches the kernel on both tables inside its ``kernel.touch_adagrad``
+    span and counts live touches on both ``update_kernel_touches.*``."""
+    from lightfm_tpu_torch.ops import _build
+    from lightfm_tpu_torch.ops import adagrad_update as au
+    from lightfm_tpu_torch.ops.updates import touch_order
+    from lightfm_tpu_torch.parallel.mesh import TablePlacement
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 7)
+    log(f"phase 4c: the generic step's adagrad kernel (touch_adagrad_update) vs plain, chunks "
+        f"of {au.CHUNK} touches, W={HYB_W}")
+    ptxas = [ln.strip() for ln in _build.build_log("adagrad_update").splitlines()
+             if "registers" in ln or "spill" in ln]
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in ptxas if "spill" in ln),
+          f"ptxas: no adagrad_update function spills ({len(ptxas)} lines)")
+    out, worst = {}, 0.0
+    for which in ("item", "user"):
+        R, idx_np, mask_np = hybrid_touches(rng, which)
+        M = idx_np.size
+        idx = torch.from_numpy(idx_np).to(dev)
+        mask = torch.from_numpy(mask_np).to(dev)
+        wg = torch.from_numpy((0.1 * rng.randn(M, HYB_W)).astype(np.float32)).to(dev)
+        wg *= mask[:, None]  # as sparse_update's (w * mask) * g
+        table0 = torch.from_numpy((0.1 * rng.randn(R, HYB_W)).astype(np.float32)).to(dev)
+        acc0 = torch.from_numpy((1.0 + rng.rand(R, HYB_W)).astype(np.float32)).to(dev)
+        skeys, order = touch_order(idx, mask, R)
+
+        def run(fn, t0=table0, a0=acc0, k=skeys, o=order, g=wg):
+            t, a = t0.clone(), a0.clone()
+            fn(t, a, k, o, g, LR)
+            torch.cuda.synchronize()
+            return t, a
+
+        t1, a1 = run(au.touch_adagrad_update)
+        t2, a2 = run(au.touch_adagrad_update)
+        check(torch.equal(t1, t2) and torch.equal(a1, a2),
+              f"{which}: two launches are bitwise equal")
+        tp, ap = run(au.touch_adagrad_update_plain)
+        live = skeys < R
+        t_tol, a_tol = update_tolerance(torch, table0, acc0, skeys[live], wg[order[live]])
+        dt, da = (t1 - tp).abs(), (a1 - ap).abs()
+        err = max(float(dt.max()), float(da.max()))
+        worst = max(worst, err)
+        check(bool((dt <= t_tol).all() and (da <= a_tol).all()),
+              f"{which}: kernel equals plain within the summation-order bound (max |d| table "
+              f"{float(dt.max()):.3g}, acc {float(da.max()):.3g})")
+        del t_tol, a_tol, tp, ap
+        # The plain version's own order bounds it loosely ((n + 2) ulps of a
+        # row's n touches); against float64 the kernel is held to its
+        # chunked order's bound, tight enough that a lost chunk shows.
+        t64, a64, t_tol, a_tol = chunk_tolerance(torch, table0, acc0, skeys, order, wg)
+        dt, da = (t1.double() - t64).abs(), (a1.double() - a64).abs()
+        share = max(float((dt / t_tol.clamp_min(1e-300)).max()),
+                    float((da / a_tol.clamp_min(1e-300)).max()))
+        check(share <= 1.0, f"{which}: kernel within its chunked order's bound of the float64 "
+              f"step (worst {share:.3g} of the bound; max |d| table {float(dt.max()):.3g}, "
+              f"acc {float(da.max()):.3g})")
+        del t64, a64, t_tol, a_tol, dt, da
+        untouched = torch.ones(R, dtype=torch.bool, device=dev)
+        untouched[idx[mask]] = False
+        check(torch.equal(t1[untouched], table0[untouched])
+              and torch.equal(a1[untouched], acc0[untouched]),
+              f"{which}: untouched rows are bitwise unchanged")
+        # The live touches alone, sorted as sparse_update sorts them.
+        keep = torch.nonzero(mask)[:, 0]
+        ones = torch.ones(keep.numel(), dtype=torch.bool, device=dev)
+        lk, lo = touch_order(idx[keep], ones, R)
+        t3, a3 = run(au.touch_adagrad_update, k=lk, o=lo, g=wg[keep].contiguous())
+        check(torch.equal(t3, t1) and torch.equal(a3, a1),
+              f"{which}: the live touches alone give bitwise the same table and acc")
+        same = []
+        for layout, n in (("rows", 2), ("components", 16), ("components", 4),
+                          ("components", 2)):
+            size = (R if layout == "rows" else HYB_W) // n
+            for k in range(n):
+                place = TablePlacement(None, layout, k * size, (k + 1) * size, (R, HYB_W))
+                li, lm, lg, _ = place.own(idx, mask, wg)
+                rows = slice(k * size, (k + 1) * size) if layout == "rows" else slice(0, R)
+                cols = (slice(k * size, (k + 1) * size) if layout == "components"
+                        else slice(0, HYB_W))
+                lk, lo = touch_order(li, lm, rows.stop - rows.start)
+                tk, ak = run(au.touch_adagrad_update, table0[rows, cols].contiguous(),
+                             acc0[rows, cols].contiguous(), lk, lo, lg.contiguous())
+                same.append(torch.equal(tk, t1[rows, cols]) and torch.equal(ak, a1[rows, cols]))
+        check(all(same), f"{which}: each rows part of 2 and each components part of 2, 8 and 16 "
+              f"columns is bitwise the whole call's ({sum(same)} of {len(same)} parts)")
+        tz, az = run(au.touch_adagrad_update, k=torch.full_like(skeys, R))
+        check(torch.equal(tz, table0) and torch.equal(az, acc0),
+              f"{which}: an all-masked call changes nothing")
+        del t1, a1, t2, a2, t3, a3, tz, az
+        tw, aw = table0.clone(), acc0.clone()
+
+        def kernel():
+            au.touch_adagrad_update(tw, aw, skeys, order, wg, LR)
+
+        lr_local = LR * torch.rsqrt(acc0[idx])
+
+        def library():  # the parent's two ordered scatter-adds
+            tw.index_put_((idx,), -(lr_local * wg), accumulate=True)
+            aw.index_put_((idx,), wg * wg, accumulate=True)
+
+        runs = torch.unique_consecutive(skeys[live], return_counts=True)[1]
+        split = device_ms(torch, kernel)
+        rec = {
+            "M": M, "W": HYB_W, "R": R, "live": int(live.sum()), "distinct": int(runs.numel()),
+            "hottest": int(runs.max()), "ms": time_ms(torch, kernel, reps=20),
+            "device_ms": sum(split.values()), "device_split": split,
+            "sort_ms": time_ms(torch, lambda: touch_order(idx, mask, R), reps=20),
+            "plain_ms": time_ms(torch, lambda: au.touch_adagrad_update_plain(
+                tw, aw, skeys, order, wg, LR), reps=5),
+            "library_ms": time_ms(torch, library, reps=5),
+            "bound_ms": update_bound_ms(int(live.sum()), HYB_W, int(runs.numel())),
+            "max_abs_err": err, "share_of_f64_bound": share,
+        }
+        log(f"  {which}: " + json.dumps(rec))
+        out[which] = rec
+        del idx, mask, wg, table0, acc0, skeys, order, tw, aw, lr_local
+        torch.cuda.empty_cache()
+    out["fit"] = touch_update_fit(torch, seed)
+    return {"worst": worst, "cases": out}
+
+
+def touch_update_fit(torch, seed: int) -> dict:
+    """Phase 4c's fit: one epoch of ``LightFM(loss="warp", item_alpha=1e-6,
+    no_components=30)`` on phase 5's interactions with tag features alone
+    (the generic path), every step read from a recording: the kernel's
+    spans, and the device counters read after each step (a wrapper around
+    the WARP step, which synchronises)."""
+    from lightfm_tpu_torch import LightFM, losses, observability
+    from lightfm_tpu_torch.ops import adagrad_update as au
+
+    coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
+    tags = tag_features(TRAIN_ITEMS, seed=seed + 3)[:, TRAIN_ITEMS:].tocsr()
+    step = losses.LOSS_STEPS["warp"]
+    names = ("update_kernel_touches.item", "update_kernel_touches.user")
+    per_step = []
+
+    def counted(*args, **kwargs):
+        before = [observability.device_counter(n) for n in names]
+        state = step(*args, **kwargs)
+        per_step.append([observability.device_counter(n) - b for n, b in zip(names, before)])
+        return state
+
+    model = LightFM(loss="warp", item_alpha=1e-6, no_components=30, batch_size=TRAIN_BATCH,
+                    random_state=seed, device=DEVICE)
+    au.reset_launches()
+    losses.LOSS_STEPS["warp"] = counted
+    try:
+        with observability.recording() as rec:
+            model.fit(coo, item_features=tags, epochs=1)
+    finally:
+        losses.LOSS_STEPS["warp"] = step
+    steps = rec.named("step")
+    spans = rec.named("kernel.touch_adagrad")
+    check(model._staged_fast is False, "the hybrid fit with item_alpha took the generic path")
+    check(len(steps) == len(per_step) > 0 and len(spans) == 2 * len(steps)
+          and au.launches["touch_adagrad_update"] == 2 * len(steps),
+          f"touch_adagrad_update launched twice a step inside kernel.touch_adagrad spans "
+          f"({len(spans)} spans, {au.launches['touch_adagrad_update']} launches, "
+          f"{len(steps)} steps)")
+    check(all(i > 0 and u > 0 for i, u in per_step),
+          "update_kernel_touches.item and .user grow on every step")
+    out = {"steps": len(steps), "launches": au.launches["touch_adagrad_update"],
+           "kernel_touches_item": [i for i, _ in per_step],
+           "kernel_touches_user": [u for _, u in per_step],
+           "span_ms": float(np.mean([(s.end_ns - s.start_ns) / 1e6 for s in spans]))}
+    log("  hybrid fit, one epoch: " + json.dumps(out))
+    return out
 
 
 def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_clusters: int = 64):
@@ -1944,9 +2185,12 @@ def heavy_features(n_items: int, seed: int = 5):
 
 
 def generic_path(torch, seed: int, fast: dict) -> None:
-    """Phase 8: ``LightFM.fit`` on the generic path (plain PyTorch, no
-    hand-written kernel).  Every path runs with the launch counts set to 0
-    just before it, and every one of them must stay 0."""
+    """Phase 8: ``LightFM.fit`` on the generic path (PyTorch, with its
+    adagrad pass through ``touch_adagrad_update``).  Every path runs with
+    the launch counts set to 0 just before it: an adagrad step launches
+    ``touch_adagrad_update`` once a table and once a chunk of a
+    ``ChunkedRows`` overflow tail, an adadelta step never, and no path
+    launches any other hand-written kernel."""
     import tempfile
 
     from lightfm_tpu_torch import LightFM, interop, load_model, train
@@ -1958,9 +2202,19 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     dev = torch.device(DEVICE)
     path_launches = {}
 
-    def no_kernels(what: str, launches: dict) -> None:
+    def step_kernels(what: str, launches: dict, data, steps: int, adadelta: bool = False) -> None:
         path_launches[what] = launches
-        check(all(v == 0 for v in launches.values()), f"{what}: no hand-written kernel launched")
+        per_step = 0 if adadelta else sum(
+            1 + (f.n_chunks if isinstance(f, ChunkedRows) else 0)
+            for f in (data.item_feats, data.user_feats))
+        others = {k: v for k, v in launches.items() if k != "touch_adagrad_update"}
+        check(launches["touch_adagrad_update"] == per_step * steps
+              and all(v == 0 for v in others.values()),
+              f"{what}: touch_adagrad_update launched {per_step} times a step over {steps} steps "
+              f"({launches['touch_adagrad_update']}), no other hand-written kernel")
+
+    def fit_steps(model, epochs: int) -> int:
+        return epochs * (model._staged_train_data.packed.shape[1] // model._staged_batch_size)
 
     def finite(state) -> bool:
         return all(bool(torch.isfinite(x).all()) for x in state)
@@ -1982,7 +2236,8 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     check(m._staged_fast is False, "the quickstart fit took the generic path (item table "
           f"{FIT_ITEMS} x {table_width(FIT_D)} under the fast path's 2^19)")
     check(all(x.device.type == dev.type for x in m._state), f"the quickstart state sits on {dev.type}")
-    no_kernels(f"quickstart fit warp x{FIT_EPOCHS}", launches)
+    step_kernels(f"quickstart fit warp x{FIT_EPOCHS}", launches, m._staged_train_data,
+                 FIT_EPOCHS * steps)
     epochs = [r for r in spans.records if r["label"] == "epoch"]
     epoch_ms = [r["start"].elapsed_time(r["stop"]) for r in epochs]
     steady = float(np.median(epoch_ms[1:]))
@@ -2036,7 +2291,8 @@ def generic_path(torch, seed: int, fast: dict) -> None:
         want = train.generic_epoch(interop.state_from_numpy(arrays, "cpu"), d_cpu, draws, hp, B)
         got, launches = counted_all(train.generic_epoch, interop.state_from_numpy(arrays, dev),
                                     d_dev, draws_dev, hp, B)
-        no_kernels(f"card epoch {name}", launches)
+        step_kernels(f"card epoch {name}", launches, d_dev, d_dev.packed.shape[1] // B,
+                     hp.adadelta)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         again = train.generic_epoch(interop.state_from_numpy(arrays, dev), d_dev, draws_dev, hp, B)
@@ -2063,7 +2319,7 @@ def generic_path(torch, seed: int, fast: dict) -> None:
             r = LightFM(no_components=FIT_D, random_state=seed, **kw)
             _, launches = counted_all(r.fit, coo, epochs=2, item_features=item_features)
             runs.append(r)
-        no_kernels(f"fit {name} x2", launches)
+        step_kernels(f"fit {name} x2", launches, runs[1]._staged_train_data, fit_steps(runs[1], 2))
         check(runs[0]._staged_fast is False, f"{name}: the generic path")
         if name.startswith("warp"):
             f = runs[0]._staged_train_data.item_feats
@@ -2086,7 +2342,8 @@ def generic_path(torch, seed: int, fast: dict) -> None:
         torch.cuda.synchronize()
         _, launches = counted_all(m.fit, big, epochs=GENERIC_FULL_EPOCHS)
     torch.cuda.synchronize()
-    no_kernels(f"fit warp x{GENERIC_FULL_EPOCHS} fast_path=off (5M)", launches)
+    step_kernels(f"fit warp x{GENERIC_FULL_EPOCHS} fast_path=off (5M)", launches,
+                 m._staged_train_data, fit_steps(m, GENERIC_FULL_EPOCHS))
     check(m._staged_fast is False, "fast_path='off' took the generic path")
     check(finite(m._state), "the 5M generic fit's state is finite")
     big_steps = m._staged_train_data.packed.shape[1] // TRAIN_BATCH
@@ -2112,7 +2369,7 @@ def generic_path(torch, seed: int, fast: dict) -> None:
         kw = dict(loss="warp", no_components=FIT_D, random_state=seed)
         full, launches = counted_all(LightFM(**kw).fit, coo, epochs=4, checkpoint_every_n_epochs=2,
                                      checkpoint_path=f"{tmp}/full.npz")
-        no_kernels("checkpointed fit x4", launches)
+        step_kernels("checkpointed fit x4", launches, full._staged_train_data, fit_steps(full, 4))
         LightFM(**kw).fit(coo, epochs=2, checkpoint_every_n_epochs=2, checkpoint_path=f"{tmp}/part.npz")
         resumed = load_model(f"{tmp}/part.npz")
         check(resumed.device == str(torch.device(DEVICE)), f"load_model resumes on {resumed.device}")
@@ -2952,6 +3209,9 @@ def split_rank(torch, seed: int, rank: int, out_dir: str) -> dict:
             check(share == 1.0, f"{partition}: the assembled state within {MESH_STEP_ATOL:g} + "
                   f"{MESH_STEP_RTOL:g}|x| of the one-device fit (max |d| {worst:.3g}, bitwise "
                   f"{bitwise})")
+            # The adagrad kernel sums a row's touches in an order set by
+            # that row's own touches alone, whatever the partition.
+            check(bitwise, f"{partition}: the assembled state is bitwise the one-device fit's")
             rec.update(max_abs_err=worst, bitwise=bitwise)
             check(np.array_equal(ranks.data, one_ranks),
                   f"{partition}: predict_rank for {SPLIT_RANK_USERS} users equals the one-device "
@@ -3404,6 +3664,22 @@ def cards_path(torch, seed: int) -> dict:
     return launches
 
 
+def touch_record(touch: dict) -> dict:
+    """Phase 4c's kernel record: the item shape's times, both shapes'."""
+    items = touch["cases"]["item"]
+    return {
+        "name": "touch_adagrad_update", "route": "cuda",
+        "source": "lightfm_tpu_torch/csrc/adagrad_update.cu",
+        "replaces": "lightfm_tpu/ops/updates.py:43 (XLA scatter-adds; no pallas_call)",
+        "launches": touch["cases"]["fit"]["launches"], "max_abs_err": touch["worst"],
+        "ms": items["ms"], "plain_ms": items["plain_ms"], "bound_ms": items["bound_ms"],
+        "bound_by": "bytes", "library_ms": items["library_ms"],
+        "device_ms": items["device_ms"], "sort_ms": items["sort_ms"],
+        "user": {k: touch["cases"]["user"][k] for k in
+                 ("ms", "device_ms", "sort_ms", "plain_ms", "library_ms", "bound_ms")},
+    }
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3448,6 +3724,7 @@ def main() -> int:
 
     k1_cases = update_kernel_checks(torch, args.seed)
     k3_cases = grad_sums_checks(torch, args.seed)
+    touch = touch_update_checks(torch, args.seed)
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
@@ -3501,6 +3778,7 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": None,
         },
     ]
+    kernels.append(touch_record(touch))
     k3 = hybrid["row"]
     check(hybrid["launches"]["sorted_grad_sums"] > 0, "sorted_grad_sums launched on the hybrid path")
     check(k5["launches"] > 0, "warp_fit_fused launched on the whole-fit path")

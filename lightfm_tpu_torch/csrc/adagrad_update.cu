@@ -31,6 +31,26 @@
 // atomics), whose finished runs this file applies: the table and acc rows of
 // a warp's kInFlight runs are loaded together before any is written, and
 // pass B applies a crossing run with the untouched pre-call acc.
+//
+// touch_adagrad_update, the second entry point, is the adagrad pass of the
+// generic training step (ops/updates.py's sparse_update on the card).  It
+// replaces the XLA scatter-adds of lightfm_tpu/ops/updates.py:43
+// (sparse_update), no Pallas kernel; the port first ran them as PyTorch's
+// index_put_(accumulate=True), which sums each row's duplicates in one
+// thread's serial loop: at a row width of 32 a hot tag's ~65,000 touches a
+// step took that loop twice (table and acc), 58-67% of a hybrid step's device
+// time.  Contract: K1's at fp32, over touches keyed by row (a masked touch
+// keyed R, past the last row), sorted stably, with the gradients read in
+// place through the sort's order; any width.  Bound: bytes, as K1's: the
+// active touches' ids, order and gradient rows read once and the distinct
+// rows' table and acc read and written once (0.04-0.08 ms a hybrid step's
+// item touches).  Design: segmented.cuh's run-aligned chunks: a row's sums
+// depend only on its own touches in touch order, so the masked touches of a
+// row partition and the columns of a component partition leave a held row's
+// result bitwise the one device's; a hot row's touches are summed 32 to a
+// warp, and its chunk sums added in pass B's fixed order (by one warp up to
+// 32 of them, else by a block of 8 warps), so a run of n touches costs about
+// n / 256 dependent adds instead of n.
 
 #include "segmented.cuh"
 
@@ -116,6 +136,39 @@ cudaError_t launch(float* table, float* acc, const int* sidx, const float* swg,
   return cudaGetLastError();
 }
 
+// touch_adagrad_update: the same step over run-aligned chunks (segmented.cuh),
+// gradients read in place through the sort's order.
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+adagrad_chunk_pass(float* __restrict__ table, float* __restrict__ acc,
+                   const int* __restrict__ skey, const long long* __restrict__ order,
+                   const float* __restrict__ wg, float* __restrict__ part, long long M,
+                   int R, int W, float lr) {
+  chunk_pass<CPL>(AdagradStep{table, acc, W, lr}, skey, order, wg, part, M, R, W);
+}
+
+template <int CPL>
+__global__ void __launch_bounds__(kThreads)
+adagrad_chunk_combine(float* __restrict__ table, float* __restrict__ acc,
+                      const int* __restrict__ skey, const float* __restrict__ part,
+                      long long M, int R, int W, float lr) {
+  combine_pass<CPL>(AdagradStep{table, acc, W, lr}, skey, part, M, R, W, ChunkRuns{});
+}
+
+template <int CPL>
+cudaError_t launch_chunks(float* table, float* acc, const int* skey, const long long* order,
+                          const float* wg, float* part, long long M, int R, int W, float lr,
+                          cudaStream_t stream) {
+  const unsigned blocks = (unsigned)chunk_blocks(M);
+  adagrad_chunk_pass<CPL><<<blocks, kThreads, 0, stream>>>(table, acc, skey, order, wg, part,
+                                                           M, R, W, lr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  adagrad_chunk_combine<CPL><<<blocks, kThreads, 0, stream>>>(table, acc, skey, part, M, R, W,
+                                                              lr);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +197,29 @@ int sorted_adagrad_update_launch(float* table, float* acc, const int* sidx,
     case 3: return (int)launch<3>(table, acc, sidx, swg, part, M, R, W, lr, bf16, s);
     default: return (int)launch<kMaxCols>(table, acc, sidx, swg, part, M, R, W, lr, bf16, s);
   }
+}
+
+// table, acc: f32 [R, W] (updated in place), any W >= 1; skey: i32 [M]
+// non-decreasing, a key outside [0, R) skipped; order: i64 [M], the touch
+// (row of wg) at each sorted position; wg: f32 [M, W] in touch order; part:
+// f32 scratch [part_chunks, 2, 2W], written and read only by this call,
+// where part_chunks must be ceil(M / kChunk) (kChunk = 32).  fp32 sums.
+// Launches two grids of ceil(part_chunks / kWarps) blocks on the caller's
+// stream; returns a cudaError_t code.
+int touch_adagrad_update_launch(float* table, float* acc, const int* skey,
+                                const long long* order, const float* wg, float* part,
+                                long long M, int R, int W, float lr, long long part_chunks,
+                                void* stream) {
+  if (M <= 0 || R <= 0 || W <= 0) return 0;
+  if (part_chunks != chunks(M)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // At most 64 columns a pass (wider tables take more passes): the pass-A
+  // warp holds eight gradient rows of CPL columns a lane in registers, and
+  // at CPL = 4 ptxas spilled.
+  if (cols_per_lane(W) == 1) {
+    return (int)launch_chunks<1>(table, acc, skey, order, wg, part, M, R, W, lr, s);
+  }
+  return (int)launch_chunks<2>(table, acc, skey, order, wg, part, M, R, W, lr, s);
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
 // The segmented reduction over sorted touches that the adagrad update (K1,
 // csrc/adagrad_update.cu) and the gradient sums (K3, csrc/grad_sums.cu)
-// share.  The two kernels differ only in what a finished run does: K1 applies
-// the adagrad step to its table row, K3 stores the run's sums.  Each passes
-// that as a `Finish` object:
+// share; its pass B, after a pass of run-aligned chunks in place of pass A
+// (below the first two passes), also serves the generic step's adagrad pass
+// (touch_adagrad_update in csrc/adagrad_update.cu).  The kernels differ only
+// in what a finished run does: K1 applies the adagrad step to its table row,
+// K3 stores the run's sums.  Each passes that as a `Finish` object:
 //     finish(rows, c0, cw, lane, s, s2)
 // takes NR rows (a row < 0 is skipped) with their sums at columns
 // [c0, c0 + cw) of (sum wg | sum wg^2), this lane's columns c0 + lane + 32 * q.
@@ -20,10 +22,10 @@
 //   that starts here and leaves into the next, is written instead as a
 //   partial (sum wg | sum wg^2) row to the scratch `part` [segments, 2, 2W]:
 //   slot 0 for the entering run, slot 1 for the leaving one.
-// - Pass B.  One warp for each segment but the last.  It returns unless a
-//   run starts in its segment and leaves it.  Then it votes on the first ids
-//   of the next 32 segments: a run of at most 32 partials is added by the
-//   warp, in segment order, and finished.  A longer run goes to the whole
+// - Pass B (combine_pass with EdgeRuns).  One warp for each segment but the
+//   last.  It returns unless a run starts in its segment and leaves it.
+//   Then it votes on the first ids of the next 32 segments: a run of at
+//   most 32 partials is added by the warp, in segment order, and finished.  A longer run goes to the whole
 //   block, which counts its segments with block-wide votes and adds its
 //   partials in a fixed tree: warp w takes partials w, w + 8, ... in order,
 //   and the eight warp sums are added in warp order.  A run of n touches
@@ -233,59 +235,80 @@ __device__ __forceinline__ void sum_partials(const float* part, long long seg,
   }
 }
 
-// The partials of row r's run that leaves segment `seg`, counted by the whole
-// block: 1 for the segment itself, then one for each later segment that
-// begins with r (a prefix, since sidx is sorted).  Every thread calls it.
-__device__ __forceinline__ long long count_partials(const int* sidx, long long seg,
-                                                    long long n_seg, int r) {
+// The partials of row r's run whose partial p > 0 is headed by position
+// base + p * stride, counted by the whole block: 1 for partial 0, then one
+// for each later head that holds r (a prefix, since sidx is sorted).  Every
+// thread calls it.
+__device__ __forceinline__ long long count_partials(const int* sidx, long long base,
+                                                    long long stride, long long M, int r) {
   long long n_parts = 1;
-  for (long long base = seg + 1;; base += kThreads) {
-    const long long t = base + threadIdx.x;
-    const int hits = __syncthreads_count(t < n_seg && sidx[t * kSeg] == r);
+  for (long long p = 1;; p += kThreads) {
+    const long long t = base + (p + threadIdx.x) * stride;
+    const int hits = __syncthreads_count(t < M && sidx[t] == r);
     n_parts += hits;
     if (hits < kThreads) return n_parts;
   }
 }
 
-// Pass B for segments blockIdx.x * kWarps + warp.
-template <int CPL, typename Finish>
-__device__ __forceinline__ void combine_pass(const Finish& finish,
-                                             const int* __restrict__ sidx,
-                                             const float* __restrict__ part,
-                                             long long M, int R, int W) {
-  constexpr int CW = 32 * CPL;
-  __shared__ float red[2][kWarps][CW];
-  __shared__ long long long_seg[kWarps];
-  __shared__ int long_row[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long n_seg = (M + kSeg - 1) / kSeg;
-  const long long seg = (long long)blockIdx.x * kWarps + warp;
-  float s[1][CPL], s2[1][CPL];
-  if (lane == 0) long_seg[warp] = -1;
-  if (seg < n_seg - 1) {
+// Pass B's owners.  `owned` is called by every lane of the warp for unit
+// `seg` (a segment, or a bucket of kChunk positions): it returns the row of
+// the run with partials that this unit owns, or -1, and sets `base` so that
+// partial p > 0 of that run is headed by position base + p * kStride.  The
+// run's partial p lies in slot 1 of unit seg for p = 0, else in slot 0 of
+// unit seg + p.
+//
+// EdgeRuns (K1, K3): the run that starts in segment seg and leaves it.
+struct EdgeRuns {
+  static constexpr long long kStride = kSeg;
+
+  __device__ __forceinline__ int owned(const int* sidx, long long seg, long long M, int R,
+                                       int, long long& base) const {
+    const long long n_seg = (M + kSeg - 1) / kSeg;
+    if (seg >= n_seg - 1) return -1;
     // The last id of the segment, the one after it and the one before the
     // segment, loaded together.
     const long long end = (seg + 1) * kSeg;
     const int r = sidx[end - 1], next = sidx[end];
     const int prev = sidx[seg > 0 ? seg * kSeg - 1 : 0];
-    if (r >= 0 && r < R && next == r && !(seg > 0 && prev == r)) {
-      // This segment owns a leaving run.  Lane l votes on whether segment
-      // seg + 1 + l begins with r: the hits are a prefix (sidx is sorted).
-      const long long t = seg + 1 + lane;
-      const unsigned hits =
-          __ballot_sync(0xffffffffu, t < n_seg && sidx[t * kSeg] == r);
-      if (hits == 0xffffffffu) {  // more than 32 partials: the whole block's
-        if (lane == 0) {
-          long_seg[warp] = seg;
-          long_row[warp] = r;
-        }
-      } else {  // at most 32 partials: this warp adds them in order
-        const int rows[1] = {r};
-        for (int c0 = 0; c0 < W; c0 += CW) {
-          const int cw = W - c0 < CW ? W - c0 : CW;
-          sum_partials<CPL>(part, seg, 0, 1, 1 + __popc(hits), W, c0, cw, lane, s, s2);
-          finish(rows, c0, cw, lane, s, s2);
-        }
+    base = seg * kSeg;
+    return r >= 0 && r < R && next == r && !(seg > 0 && prev == r) ? r : -1;
+  }
+};
+
+// Pass B for units blockIdx.x * kWarps + warp, one a warp.
+template <int CPL, typename Finish, typename Owner = EdgeRuns>
+__device__ __forceinline__ void combine_pass(const Finish& finish,
+                                             const int* __restrict__ sidx,
+                                             const float* __restrict__ part,
+                                             long long M, int R, int W,
+                                             const Owner& owner = Owner{}) {
+  constexpr int CW = 32 * CPL;
+  __shared__ float red[2][kWarps][CW];
+  __shared__ long long long_seg[kWarps], long_base[kWarps];
+  __shared__ int long_row[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long seg = (long long)blockIdx.x * kWarps + warp;
+  float s[1][CPL], s2[1][CPL];
+  if (lane == 0) long_seg[warp] = -1;
+  long long base = 0;
+  const int r = owner.owned(sidx, seg, M, R, lane, base);
+  if (r >= 0) {
+    // Lane l votes on whether partial 1 + l is r's: the hits are a prefix
+    // (sidx is sorted).
+    const long long t = base + (1 + lane) * Owner::kStride;
+    const unsigned hits = __ballot_sync(0xffffffffu, t < M && sidx[t] == r);
+    if (hits == 0xffffffffu) {  // more than 32 partials: the whole block's
+      if (lane == 0) {
+        long_seg[warp] = seg;
+        long_base[warp] = base;
+        long_row[warp] = r;
+      }
+    } else {  // at most 32 partials: this warp adds them in order
+      const int rows[1] = {r};
+      for (int c0 = 0; c0 < W; c0 += CW) {
+        const int cw = W - c0 < CW ? W - c0 : CW;
+        sum_partials<CPL>(part, seg, 0, 1, 1 + __popc(hits), W, c0, cw, lane, s, s2);
+        finish(rows, c0, cw, lane, s, s2);
       }
     }
   }
@@ -297,7 +320,7 @@ __device__ __forceinline__ void combine_pass(const Finish& finish,
     const long long lseg = long_seg[lw];
     if (lseg < 0) continue;
     const int rows[1] = {long_row[lw]};
-    const long long n_parts = count_partials(sidx, lseg, n_seg, rows[0]);
+    const long long n_parts = count_partials(sidx, long_base[lw], Owner::kStride, M, rows[0]);
     for (int c0 = 0; c0 < W; c0 += CW) {
       const int cw = W - c0 < CW ? W - c0 : CW;
       sum_partials<CPL>(part, lseg, warp, kWarps, n_parts, W, c0, cw, lane, s, s2);
@@ -323,6 +346,171 @@ __device__ __forceinline__ void combine_pass(const Finish& finish,
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// Run-aligned chunks (the adagrad pass of the generic training step,
+// csrc/adagrad_update.cu's touch_adagrad_update).  The passes above cut the
+// positions at fixed segment edges, so the order in which a row's touches
+// are added depends on where its run lands in the sorted array.  Here every
+// run is cut into chunks of kChunk touches counted from the run's own first
+// touch; each chunk is summed in touch order and a run of several chunks adds
+// its chunk sums in pass B's fixed order, which depends on the number of
+// chunks alone.  A row's sums then depend only on its own touches, in touch
+// order: touches keyed outside [0, R) (a masked touch is keyed R) may lie
+// anywhere in the array without changing a bit, and each column is summed on
+// its own, so a table split by columns adds as the whole.  The gradients are
+// read in place through `order` (sorted position -> touch), with no alignment
+// asked of them, so any width W >= 1 works.
+//
+// Pass A: warp u takes positions [u * kChunk, (u + 1) * kChunk), a bucket.
+// It finds where each of its positions' runs starts (the run of its first
+// position may start in an earlier bucket: a 32-way search of the sorted
+// keys), and takes every chunk that starts in the bucket, one after another:
+// the chunk's touches (at most kChunk, read through `order` eight at a time)
+// are summed in fp32 in touch order.  A run of one chunk is finished at
+// once; otherwise the chunk's sums go to the scratch, the run's first chunk
+// to slot 1 of its bucket, a later chunk to slot 0.  A chunk k of a run that
+// starts at s begins at s + k * kChunk, in bucket s / kChunk + k, so partial
+// p of a run lies where sum_partials looks for it; a bucket holds at most one
+// first chunk and one later chunk of runs longer than kChunk.
+// Pass B: combine_pass with ChunkRuns, one warp a bucket: the bucket that
+// holds the start of a run longer than kChunk adds its partials.
+
+constexpr int kChunk = 32;  // touches of one chunk; pass A's positions a warp
+
+// The position where the run that holds position p0 starts (sorted keys,
+// skey[p0] == key), found by the warp in rounds of 32 probes.  Every lane
+// calls it and gets the same answer.
+__device__ __forceinline__ long long run_start(const int* skey, long long p0, int key,
+                                               int lane) {
+  long long lo = 0, hi = p0;  // the start lies in [lo, hi]
+  while (lo < hi) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long q = lo + lane * step;
+    const int n = __popc(__ballot_sync(0xffffffffu, q < hi && skey[q] < key));
+    if (n == 0) return lo;  // skey[lo] == key
+    const long long top = lo + n * step;  // the first probe that is not below
+    lo += (n - 1) * step + 1;
+    hi = top < hi ? top : hi;
+  }
+  return lo;
+}
+
+// Pass A for bucket blockIdx.x * kWarps + warp.
+template <int CPL, typename Finish>
+__device__ __forceinline__ void chunk_pass(const Finish& finish,
+                                           const int* __restrict__ skey,
+                                           const long long* __restrict__ order,
+                                           const float* __restrict__ wg,
+                                           float* __restrict__ part, long long M,
+                                           int R, int W) {
+  constexpr int CW = 32 * CPL;
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const long long u = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long p0 = u * kChunk;
+  if (p0 >= M) return;
+  // This bucket's keys and touches, and the next bucket's (a chunk that
+  // starts here may end there); R stands for a position past the end.
+  const long long pa = p0 + lane, pb = pa + kChunk;
+  const int ka = pa < M ? skey[pa] : R, kb = pb < M ? skey[pb] : R;
+  const long long oa = pa < M ? order[pa] : 0, ob = pb < M ? order[pb] : 0;
+  const int up = __shfl_up_sync(kAll, ka, 1);
+  const int prev = lane > 0 ? up : (p0 > 0 ? skey[p0 - 1] : ka);
+  const bool valid = pa < M && ka >= 0 && ka < R;
+  if (__ballot_sync(kAll, valid) == 0) return;
+  const unsigned starts = __ballot_sync(kAll, pa < M && (pa == 0 || ka != prev));
+  // The run of lane 0 starts in an earlier bucket when no run starts at lane 0.
+  long long before = p0;
+  if (!(starts & 1u) && __shfl_sync(kAll, valid, 0)) {
+    before = run_start(skey, p0, __shfl_sync(kAll, ka, 0), lane);
+  }
+  const unsigned upto = starts & (lane == 31 ? kAll : (2u << lane) - 1u);
+  const long long rs = upto ? p0 + (31 - __clz(upto)) : before;
+  unsigned heads = __ballot_sync(kAll, valid && (pa - rs) % kChunk == 0);
+  while (heads) {
+    const int h = __ffs(heads) - 1;
+    heads &= heads - 1;
+    const int r = __shfl_sync(kAll, ka, h);
+    const bool first = __shfl_sync(kAll, rs, h) == p0 + h;
+    const bool last = __shfl_sync(kAll, kb, h) != r;  // the key kChunk on
+    // Touch j of the chunk is at index h + j of this bucket and the next.
+    const int i = h + lane;
+    const int ja = __shfl_sync(kAll, ka, i & 31), jb = __shfl_sync(kAll, kb, i & 31);
+    const long long xa = __shfl_sync(kAll, oa, i & 31), xb = __shfl_sync(kAll, ob, i & 31);
+    const long long oj = i < 32 ? xa : xb;
+    const int len = __popc(__ballot_sync(kAll, (i < 32 ? ja : jb) == r));
+    for (int c0 = 0; c0 < W; c0 += CW) {
+      const int cw = W - c0 < CW ? W - c0 : CW;
+      float s[1][CPL], s2[1][CPL];
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) s[0][q] = s2[0][q] = 0.0f;
+      for (int j0 = 0; j0 < len; j0 += 8) {
+        float g[8][CPL];
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          const long long o = __shfl_sync(kAll, oj, (j0 + b) & 31);
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) {
+            const int c = lane + 32 * q;
+            g[b][q] = j0 + b < len && c < cw ? wg[o * W + c0 + c] : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if (j0 + b < len) {
+#pragma unroll
+            for (int q = 0; q < CPL; ++q) {
+              // __fmul_rn keeps g*g a rounded product (no FMA contraction).
+              s[0][q] += g[b][q];
+              s2[0][q] += __fmul_rn(g[b][q], g[b][q]);
+            }
+          }
+        }
+      }
+      if (first && last) {
+        const int rows[1] = {r};
+        finish(rows, c0, cw, lane, s, s2);
+      } else {
+        float* out = part + (u * 2 + (first ? 1 : 0)) * 2LL * W + c0;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int c = lane + 32 * q;
+          if (c < cw) {
+            out[c] = s[0][q];
+            out[W + c] = s2[0][q];
+          }
+        }
+      }
+    }
+  }
+}
+
+// ChunkRuns: the run longer than kChunk that starts in bucket seg (at most
+// one does: it leaves the bucket).  It is the bucket's last run.
+struct ChunkRuns {
+  static constexpr long long kStride = kChunk;
+
+  __device__ __forceinline__ int owned(const int* skey, long long seg, long long M, int R,
+                                       int lane, long long& base) const {
+    const long long p = seg * kChunk + lane;
+    const int k = p < M ? skey[p] : R;
+    const int up = __shfl_up_sync(0xffffffffu, k, 1);
+    const int prev = lane > 0 ? up : (p > 0 && p < M ? skey[p - 1] : k);
+    const unsigned starts = __ballot_sync(0xffffffffu, p < M && (p == 0 || k != prev));
+    if (!starts) return -1;
+    const int h = 31 - __clz(starts);
+    const int r = __shfl_sync(0xffffffffu, k, h);
+    base = seg * kChunk + h;
+    if (r < 0 || r >= R || base + kChunk >= M) return -1;
+    return skey[base + kChunk] == r ? r : -1;
+  }
+};
+
+// The buckets of M touches: the scratch's first extent; both passes' grids
+// take one warp a bucket.
+inline long long chunks(long long M) { return (M + kChunk - 1) / kChunk; }
+inline long long chunk_blocks(long long M) { return (chunks(M) + kWarps - 1) / kWarps; }
 
 // The segments of M touches: pass A's grid, and the scratch's first extent.
 inline long long segments(long long M) { return (M + kSeg - 1) / kSeg; }

@@ -45,7 +45,12 @@ Each step marks its parts with the fast path's span names: ``step.score``
 (the scale bump; the generic epoch marks the rescale guard that follows
 it with a second ``step.l2``).  Counters, from shapes alone:
 ``update_touches.item`` and ``update_touches.user`` (touch slots a step
-hands the optimizer, padding and examples that do not update included).
+hands the optimizer, padding and examples that do not update included);
+on the card, with adagrad, the device counters
+``update_kernel_touches.item`` and ``update_kernel_touches.user`` (the
+unmasked touches of the dense tier that the adagrad kernel sums; a
+``ChunkedRows`` overflow tail, summed by the same kernel chunk by chunk,
+is not counted).
 
 The fast path's steps live in :mod:`lightfm_tpu_torch.fast_warp`.
 """
@@ -59,7 +64,7 @@ import torch
 from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs, with_unit_bias
-from lightfm_tpu_torch.ops.updates import sparse_update
+from lightfm_tpu_torch.ops.updates import kernel_sums, sparse_update
 from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, in_positives, in_positives_slots
 from lightfm_tpu_torch.state import ModelState
 
@@ -130,11 +135,12 @@ def _off_row_zero(idx: torch.Tensor, tmask: torch.Tensor, first: torch.Tensor) -
     A masked touch adds a signed zero and multiplies by exactly 1.0, which
     leaves every value of any row as it is (at most a -0.0 turns +0.0, as
     on row 0 in the JAX package), so where it points does not change the
-    result.  Padding slots hold feature 0, though, and on CUDA the ordered
-    scatter-add (``index_put_(accumulate=True)``) sums a row's duplicates
-    one after another: with every padding slot of a batch on row 0, a
-    chunked step made one serial sum of a million terms.  The entity's
-    first feature is a row its own touches reach anyway.
+    result.  Padding slots hold feature 0, though, and on CUDA the adadelta
+    branch's ordered scatter-add (``index_put_(accumulate=True)``) sums a
+    row's duplicates one after another: with every padding slot of a batch
+    on row 0, a chunked step made one serial sum of a million terms.  The
+    entity's first feature is a row its own touches reach anyway.  (The
+    adagrad branch's kernel skips masked touches wherever they point.)
     """
     return torch.where(tmask, idx, first)
 
@@ -193,9 +199,12 @@ def _apply_touches(state, side, feats, touches, over, alpha, kw, placement):
     observability.count(f"update_touches.{side}", idx.shape[0] + sum(
         s[0].shape[0] * feats.over_idx.shape[2] * feats.n_chunks for s in over))
     idx, mask, g, own_kw = _own(placement, idx, mask, g)
+    table = getattr(state, f"{side}_table")
+    if kernel_sums(table, kw["adadelta"]):
+        observability.count_on_device(f"update_kernel_touches.{side}", mask.sum())
     table, acc, mom, lr, cnt = sparse_update(
-        getattr(state, f"{side}_table"), getattr(state, f"{side}_acc"),
-        getattr(state, f"{side}_mom"), idx, w, g, mask, alpha=alpha, **kw, **own_kw,
+        table, getattr(state, f"{side}_acc"), getattr(state, f"{side}_mom"), idx, w, g, mask,
+        alpha=alpha, **kw, **own_kw,
     )
     if over:
         table, acc, mom, lr_o, cnt_o = _overflow_chunks(

@@ -29,15 +29,27 @@ serialize on XLA:TPU; it gives the same sums in another order and returns
 zero statistics, which nothing reads (it runs only when no alpha is set).
 It is left out here: one function covers both of its regimes.
 
-Determinism on CUDA: every scatter-add goes through :func:`scatter_add`
-(``index_put_(accumulate=True)``, which sums each row's duplicates in a
-fixed order; a component partition's columns add in the whole width's
-order, :func:`accumulate_rows`).  The scatter-multiplies (``index_reduce_(..., "prod")``) use
-atomics on CUDA, so their order changes from run to run, yet the result
-does not: every unmasked factor of a given (row, column) is the same bit
-pattern (``rho``, or ``1 + alpha * lr_local`` where ``lr_local`` depends on
-the row and column only), and a masked factor is exactly 1.0, so any order
-of the multiplications rounds the same way.
+Determinism on CUDA: the adagrad branch sums through the hand-written
+kernel :func:`~lightfm_tpu_torch.ops.adagrad_update.touch_adagrad_update`,
+one stable sort of the table's touches (:func:`touch_order`: a masked touch
+keyed past the last row, so the kernel skips it) and one kernel that sums
+each row's touches in fp32, in touch order, in chunks aligned to the row's
+first touch, with no atomics.  A row's sums therefore depend only on its
+own unmasked touches in touch order, not on where its run lands in the
+sorted array: the touches that a row partition masks and the columns that
+a component partition leaves to other ranks change no bit of a held row,
+so both partitions stay bitwise the one-device update.  The adadelta
+branch, which interleaves decays with its adds, goes through
+:func:`scatter_add` (``index_put_(accumulate=True)``, which sums each
+row's duplicates in a fixed order; a component partition's columns add in
+the whole width's order, :func:`accumulate_rows`).  The
+scatter-multiplies (``index_reduce_(..., "prod")``) use atomics on CUDA,
+so their order changes from run to run, yet the result does not: every
+unmasked factor of a given (row, column) is the same bit pattern (``rho``,
+or ``1 + alpha * lr_local`` where ``lr_local`` depends on the row and
+column only), and a masked factor is exactly 1.0, so any order of the
+multiplications rounds the same way.  On the CPU every sum is
+``index_add_`` in touch order.
 """
 
 from __future__ import annotations
@@ -45,6 +57,8 @@ from __future__ import annotations
 import warnings
 
 import torch
+
+from lightfm_tpu_torch.ops.adagrad_update import touch_adagrad_update
 
 # index_reduce_ warns once per process that its API is in beta.
 warnings.filterwarnings("ignore", message=r"index_reduce\(\) is in beta")
@@ -98,6 +112,22 @@ def scatter_mul(target: torch.Tensor, rows: torch.Tensor, factors: torch.Tensor)
     target.index_reduce_(0, rows, factors, "prod")
 
 
+def touch_order(idx: torch.Tensor, mask: torch.Tensor, n_rows: int):
+    """The sorted keys (int32) and the order (int64) of one table's touches
+    for :func:`~lightfm_tpu_torch.ops.adagrad_update.touch_adagrad_update`:
+    each touch keyed by its row and a masked one by ``n_rows``, past the
+    last row, sorted stably so that a row's touches keep their order."""
+    keys = torch.where(mask, idx, n_rows).to(torch.int32)
+    return torch.sort(keys, stable=True)
+
+
+def kernel_sums(table: torch.Tensor, adadelta: bool) -> bool:
+    """Whether :func:`sparse_update` sums ``table``'s touches through
+    :func:`~lightfm_tpu_torch.ops.adagrad_update.touch_adagrad_update`:
+    adagrad on a CUDA table."""
+    return table.is_cuda and not adadelta
+
+
 def sparse_update(
     table: torch.Tensor,  # [R, W] or [R]
     acc: torch.Tensor,
@@ -126,6 +156,9 @@ def sparse_update(
     them and returns None for both.  A table that holds columns
     ``[col_offset, col_offset + W)`` of a ``full_width`` table (a
     component partition) counts its active columns by their global index.
+
+    Adagrad on a CUDA table sums through the hand-written kernel
+    (:func:`kernel_sums`; see the module docstring).
     """
     squeeze = table.dim() == 1
     if squeeze:
@@ -138,8 +171,12 @@ def sparse_update(
     if not adadelta:
         # adagrad (template:376-389, 436-449).
         lr_local = learning_rate * torch.rsqrt(acc[idx])  # [M, W]
-        scatter_add(table, idx, -(lr_local * wg), full_width)
-        scatter_add(acc, idx, wg * wg, full_width)
+        if kernel_sums(table, adadelta):
+            skeys, order = touch_order(idx, mask, table.shape[0])
+            touch_adagrad_update(table, acc, skeys, order, wg, learning_rate)
+        else:
+            scatter_add(table, idx, -(lr_local * wg), full_width)
+            scatter_add(acc, idx, wg * wg, full_width)
     else:
         # adadelta (template:359-374, 417-434).
         decay = torch.where(mask, rho, 1.0).to(table.dtype)[:, None].expand_as(wg).contiguous()

@@ -197,8 +197,15 @@ def test_wrappers_check_arguments_and_count_no_cpu_launch():
         au.sorted_adagrad_update(table, acc, idx, wg, LR, "bf16")
     au.sorted_adagrad_update(table, acc, idx, wg, LR)
     au.adagrad_update(table, acc, idx, wg, LR)
+    skeys, order = torch.sort(idx, stable=True)
+    with pytest.raises(TypeError, match="int64"):
+        au.touch_adagrad_update(table, acc, skeys, order.int(), wg, LR)
+    with pytest.raises(ValueError, match="order must be"):
+        au.touch_adagrad_update(table, acc, skeys, order[:-1], wg, LR)
+    au.touch_adagrad_update(table, acc, skeys, order, wg, LR)
     # Plain versions are not kernel launches.
-    assert au.launches == {"sorted_adagrad_update": 0, "adagrad_update": 0}
+    assert au.launches == {"sorted_adagrad_update": 0, "adagrad_update": 0,
+                           "touch_adagrad_update": 0}
 
 
 # --- the two-pass kernel's plan and bookkeeping -----------------------------
