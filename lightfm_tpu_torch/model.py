@@ -22,7 +22,6 @@ kernels on the CPU.
 from __future__ import annotations
 
 import os
-import weakref
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,12 +29,12 @@ import torch
 
 from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import Hyperparams
-from lightfm_tpu_torch.ops.ranking import predict_ranks_padded, recall, remember
+from lightfm_tpu_torch.ops.ranking import predict_ranks_padded
 from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs
 from lightfm_tpu_torch.sparse import (
     IdentityRows,
+    Memo,
     PaddedRows,
-    content_fingerprint,
     content_key,
     identity_rows,
     pad_csr,
@@ -44,10 +43,10 @@ from lightfm_tpu_torch.state import ModelState
 
 __all__ = ["LightFM"]
 
-# Module-level memo of the hybrid path's transposed feature structures
-# (LightFM._transposed_features): the fat tier is hundreds of MB built from
-# the CSR, and a fresh model refit on the same features must not pay it again.
-_TRANSPOSE_MEMO: dict = {}
+# The hybrid path's transposed feature structures (LightFM._transposed_features),
+# kept for the module: the fat tier is hundreds of MB built from the CSR, and a
+# fresh model refit on the same features must not pay it again.
+_TRANSPOSED = Memo(cap=4)
 
 CYTHON_DTYPE = np.float32  # the reference's on-disk dtype; kept for parity
 
@@ -199,7 +198,7 @@ class LightFM:
         if self._state is not None:
             self._state = ModelState(*(x.to(self._device) for x in self._state))
         self._drop_mirrors()
-        self._serving_cache = {}
+        self._fresh_caches()  # both hold tensors on the old device
 
     # ------------------------------------------------------------------
     # State plumbing
@@ -210,16 +209,23 @@ class LightFM:
         # Where a mesh fit placed the state (parallel.mesh.Placement; None:
         # whole tensors).
         self._placement = None
-        # recommend()'s catalog, catalog block or compressed index, under a
-        # split item side the whole item table assembled for serving, and
-        # the identity-keyed host prep of the input matrices.
-        self._serving_cache: dict = {}
+        self._fresh_caches()
         # Writable host mirrors of the fused state tables, handed out (as
         # views) by the state-attribute getters so user code can edit them
         # in place like the reference's numpy attributes; `_mirror_snaps`
         # holds pristine copies used to detect edits (`_sync_mirrors`).
         self._host_mirrors: dict = {}
         self._mirror_snaps: dict = {}
+
+    def _fresh_caches(self):
+        # What the serving calls derive from the caller's matrices (the
+        # conversions, the intersection count, the staged rank inputs, the
+        # padded features), kept under the matrices' content keys.
+        self._memo = Memo(cap=16)
+        # What they derive from the model's state (recommend()'s catalog,
+        # catalog block or compressed index, and under a split item side the
+        # whole item table assembled for serving): every state change clears it.
+        self._state_cache: dict = {}
 
     def _hp(self, bpr_tries: int = 8) -> Hyperparams:
         return Hyperparams(
@@ -706,18 +712,17 @@ class LightFM:
         (``predict_rank`` and the metrics, the compressed index, a catalog
         block that is not this rank's own rows): the state's, or under a
         split item side its parts assembled on the card (a collective:
-        every rank of the mesh calls it), kept in the serving cache until
-        the state changes."""
+        every rank of the mesh calls it), kept until the state changes."""
         p = self._placement
         if p is None or not p.item.sharded:
             return self._state.item_table
         key = ("catalog", "item_table")
-        table = self._serving_cache.get(key)
+        table = self._state_cache.get(key)
         if table is None:
             from lightfm_tpu_torch.parallel import mesh as pmesh
 
             table = pmesh.assemble(self._state, p, ("item_table",))["item_table"]
-            self._serving_cache[key] = table
+            self._state_cache[key] = table
         return table
 
     def _catalog_block(self, item_feats, n_items: int, cacheable: bool):
@@ -734,7 +739,7 @@ class LightFM:
 
         mesh = self.mesh
         key = ("catalog", "block", n_items, mesh.shape[MODEL_AXIS], mesh.coords[MODEL_AXIS])
-        block = self._serving_cache.get(key) if cacheable else None
+        block = self._state_cache.get(key) if cacheable else None
         if block is not None:
             return block
         item = None if self._placement is None else self._placement.item
@@ -747,7 +752,7 @@ class LightFM:
                                                         n_items)
             block = retrieval.catalog_block(catalog, n_items, mesh)
         if cacheable:
-            self._serving_cache[key] = block
+            self._state_cache[key] = block
         return block
 
     def _put_whole(self, attr: str, whole: torch.Tensor):
@@ -781,14 +786,9 @@ class LightFM:
             self._drop_state_dependent_cache()  # representations changed
 
     def _drop_state_dependent_cache(self):
-        """Drop serving-cache entries derived from MODEL STATE (catalog,
-        catalog block, assembled item table, compressed index), keeping the
-        identity-keyed host prep."""
-        self._serving_cache = {
-            k: v
-            for k, v in self._serving_cache.items()
-            if not (isinstance(k, tuple) and k and k[0] in ("index", "catalog"))
-        }
+        """Drop what serving derived from the model's state; what it derived
+        from the caller's matrices stays."""
+        self._state_cache.clear()
 
     def _get_field(self, name):
         if self._state is None:
@@ -816,7 +816,7 @@ class LightFM:
         self._put_whole(attr, table)
         self._host_mirrors.pop(attr, None)
         self._mirror_snaps.pop(attr, None)
-        self._serving_cache = {}
+        self._drop_state_dependent_cache()
 
     # ------------------------------------------------------------------
     # Input coercion / validation (mirrors lightfm.py:314-472)
@@ -898,32 +898,17 @@ class LightFM:
         (``lightfm_tpu/model.py:309-354``), or None when it should not
         engage: identity features, or entity + feature counts so large
         that the dense per-step table streams would dominate the batch work.
-        Memoized module-wide by the feature matrix's identity, content,
-        precision and device, so refitting a fresh model on the same
-        features does not build the fat tier again."""
+        Kept for the module under the feature matrix's identity and content
+        and what the build reads (precision, device, fat-tier budget), so
+        refitting a fresh model on the same features does not build the fat
+        tier again."""
         if not isinstance(padded, PaddedRows):
             return None
         if padded.n_rows + padded.n_cols > 32 * batch_size:
             return None
-        key = (f"feats_T_{fast_precision}", str(self._device), id(csr),
-               content_fingerprint(csr))
-        hit = _TRANSPOSE_MEMO.get(key)
-        if hit is not None:
-            ref, val = hit
-            if ref() is csr:
-                return val
-        val = self._build_transposed(csr, fast_precision)
-        try:
-            # Sweep dead entries first (a collected matrix must not keep
-            # hundreds of MB of device tensors alive), then bound the rest.
-            for k in [k for k, (r, _) in _TRANSPOSE_MEMO.items() if r() is None]:
-                _TRANSPOSE_MEMO.pop(k, None)
-            if len(_TRANSPOSE_MEMO) >= 4:  # bounded: drop the oldest
-                _TRANSPOSE_MEMO.pop(next(iter(_TRANSPOSE_MEMO)))
-            _TRANSPOSE_MEMO[key] = (weakref.ref(csr), val)
-        except TypeError:
-            pass
-        return val
+        extra = (fast_precision, str(self._device), self._FAT_TIER_LIMIT_BYTES, content_key(csr))
+        return _TRANSPOSED.get("feats_T", (csr,), extra,
+                               lambda: self._build_transposed(csr, fast_precision))
 
     @property
     def _FAT_TIER_LIMIT_BYTES(self):
@@ -979,62 +964,13 @@ class LightFM:
             fat_w2=fat_w2,
         )
 
-    def _memo_by_identity(self, kind: str, obj, build, fingerprint=None):
-        """Memoize ``build(obj)`` in the serving cache keyed by ``obj``'s
-        identity (weakref-guarded against id reuse) plus a content checksum
-        (in-place mutation misses instead of returning stale results), so
-        the per-epoch metric loop skips host padding and staging.  The
-        checksum is ``fingerprint`` when the caller has already taken one,
-        else ``content_fingerprint(obj)``."""
-        if fingerprint is None:
-            fingerprint = content_fingerprint(obj)
-        key = (kind, id(obj), fingerprint)
-        hit = self._serving_cache.get(key)
-        if hit is not None:
-            ref, val = hit
-            if ref() is obj:
-                return val
-        val = build(obj)
-        if val is obj:
-            # Nothing to memoize; caching would make the entry immortal.
-            return val
-        try:
-            entry = (weakref.ref(obj), val)
-        except TypeError:  # non-weakref-able input; skip caching
-            return val
-        # Evict same-identity entries with a stale checksum, then entries
-        # whose input is gone.
-        for k, v in list(self._serving_cache.items()):
-            stale_same = (
-                isinstance(k, tuple) and len(k) == 3
-                and k[:2] == key[:2] and k != key
-            )
-            dead = (
-                isinstance(v, tuple)
-                and v
-                and isinstance(v[0], weakref.ref)
-                and v[0]() is None
-            )
-            if stale_same or dead:
-                del self._serving_cache[k]
-        self._serving_cache[key] = entry
-        # Hard cap for callers that stream fresh live matrices.
-        live = [
-            k
-            for k, v in self._serving_cache.items()
-            if isinstance(v, tuple) and v and isinstance(v[0], weakref.ref)
-        ]
-        for k in live[: max(0, len(live) - 64)]:
-            del self._serving_cache[k]
-        return val
-
     def _pad_features_cached(self, csr):
         if self._is_identity(csr):
             # Identity matrices are rebuilt each call; key by shape.
-            return self._serving_cache.setdefault(
-                ("pad_feats_id", csr.shape[0]), identity_rows(csr.shape[0])
-            )
-        return self._memo_by_identity("pad_feats", csr, self._pad_features)
+            n = csr.shape[0]
+            return self._memo.get("pad_feats_id", (), (n,), lambda: identity_rows(n))
+        return self._memo.get("pad_feats", (csr,), (content_key(csr),),
+                              lambda: self._pad_features(csr))
 
     # ------------------------------------------------------------------
     # Prediction
@@ -1095,19 +1031,14 @@ class LightFM:
     @observability.spanned("predict_rank.intersections")
     def _check_test_train_intersections(self, test_mat, train_mat, keys):
         """Raise when ``test_mat`` and ``train_mat`` share interactions.  The
-        count is kept in the serving cache under both matrices' identities
-        and content ``keys`` (``sparse.content_key``), so the per-epoch
-        metric loop counts them once."""
+        count is kept in the model's memo for both matrices under their
+        content ``keys`` (``sparse.content_key``), so the per-epoch metric
+        loop counts them once."""
         if train_mat is None:
             return
-        key = ("intersections", id(test_mat), id(train_mat), *keys)
-        n_intersections = recall(self._serving_cache, key, (test_mat, train_mat))
-        if n_intersections is None:
-            observability.count("intersection_misses")
-            n_intersections = test_mat.multiply(train_mat).nnz
-            remember(self._serving_cache, key, (test_mat, train_mat), n_intersections)
-        else:
-            observability.count("intersection_hits")
+        n_intersections = self._memo.get(
+            "intersections", (test_mat, train_mat), keys,
+            lambda: test_mat.multiply(train_mat).nnz, counter="intersection")
         if n_intersections:
             raise ValueError(
                 "Test interactions matrix and train interactions "
@@ -1159,24 +1090,21 @@ class LightFM:
             if not user_features.shape[1] == self._table_shape("user")[0]:
                 raise ValueError("Incorrect number of features in user_features")
 
-            # Identity-keyed memoization keeps the converted CSRs stable across
-            # the per-epoch metric loop, so the tier prep hits its cache too.
-            test_interactions = self._memo_by_identity(
-                "test_csr",
-                test_interactions,
-                lambda m: m.tocsr().astype(CYTHON_DTYPE, copy=False),
-                test_key,
-            )
+            # The memo keeps the converted CSRs stable across the per-epoch
+            # metric loop, so the tier prep hits it too.
+            test_src = test_interactions
+            test_interactions = self._memo.get(
+                "test_csr", (test_src,), (test_key,),
+                lambda: test_src.tocsr().astype(CYTHON_DTYPE, copy=False))
             if train_interactions is None:
-                # Built here and never edited: its cache key is its content key.
+                # Built here and never edited: its shape is its content key.
                 train_key = ("empty_train", n_users, n_items)
-                train_interactions = self._serving_cache.setdefault(
-                    train_key, sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE)
-                )
+                train_interactions = self._memo.get(
+                    "empty_train", (), train_key,
+                    lambda: sp.csr_matrix((n_users, n_items), dtype=CYTHON_DTYPE))
             else:
-                train_interactions = self._memo_by_identity(
-                    "train_csr", train_interactions, lambda m: m.tocsr(), train_key
-                )
+                train_interactions = self._memo.get(
+                    "train_csr", (train_interactions,), (train_key,), train_interactions.tocsr)
             state = self._state._replace(item_table=self._serving_item_table())
             user_feats = self._pad_features_cached(user_features)
             item_feats = self._pad_features_cached(item_features)
@@ -1184,7 +1112,7 @@ class LightFM:
 
         ranks_data = predict_ranks_padded(
             state, user_feats, item_feats, test_interactions, train_interactions,
-            cache=self._serving_cache, user_placement=user_placement,
+            memo=self._memo, user_placement=user_placement,
             keys=(test_key, train_key),
         )
 
@@ -1277,12 +1205,12 @@ class LightFM:
         # (invalidated whenever model state changes).
         cacheable = item_features is None or self._is_identity(item_features)
         if mode == "compressed":
-            index = self._serving_cache.get(("index", n_items)) if cacheable else None
+            index = self._state_cache.get(("index", n_items)) if cacheable else None
             if index is None:
                 index = retrieval.build_compressed_index(self._serving_item_table(), item_feats,
                                                          n_items)
                 if cacheable:
-                    self._serving_cache[("index", n_items)] = index
+                    self._state_cache[("index", n_items)] = index
             scores, ids = retrieval.top_k_compressed(
                 self._state, user_feats, index, uid, k,
                 exclude_idx=exclude_idx, rerank_mult=rerank_mult, user_placement=user_placement,
@@ -1294,7 +1222,7 @@ class LightFM:
                 exclude_idx=exclude_idx, user_placement=user_placement,
             )
         elif mode in ("auto", "exact", "approx"):
-            catalog = self._serving_cache.get(("catalog", n_items)) if cacheable else None
+            catalog = self._state_cache.get(("catalog", n_items)) if cacheable else None
             if catalog is None:
                 # Streaming-size catalogs are padded to the tile multiple.
                 multiple = (
@@ -1304,7 +1232,7 @@ class LightFM:
                     self._serving_item_table(), item_feats, n_items, multiple=multiple
                 )
                 if cacheable:
-                    self._serving_cache[("catalog", n_items)] = catalog
+                    self._state_cache[("catalog", n_items)] = catalog
             scores, ids = retrieval.top_k(
                 self._state, user_feats, item_feats, uid, k, n_items,
                 exclude_idx=exclude_idx, catalog=catalog, user_placement=user_placement,
@@ -1393,7 +1321,8 @@ class LightFM:
         d.pop("mesh", None)  # device handles are not picklable
         for name in ("_placement", "_state"):  # the whole state goes below
             d.pop(name, None)
-        d.pop("_serving_cache", None)  # rebuildable device buffers
+        for name in ("_memo", "_state_cache"):  # rebuildable device buffers
+            d.pop(name, None)
         # The staged device-resident training set: rebuilt by every fit.
         for name in ("_staged_train_data", "_staged_hp", "_staged_batch_size", "_staged_fast"):
             d.pop(name, None)
@@ -1410,7 +1339,7 @@ class LightFM:
         self.mesh = None
         self._placement = None
         self._device = resolve_device(d["_device"])
-        self._serving_cache = {}
+        self._fresh_caches()
         self._drop_mirrors()
         self._state = None
         if state_np is not None:

@@ -27,8 +27,6 @@ Every matmul here is IEEE fp32 (``f32_dot`` turns TF32 off around it).
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
 
@@ -371,75 +369,37 @@ def _build_tier(test_csr, train_csr, users: np.ndarray, user_block: int, device)
     )
 
 
-# Live entries of one kind that a serving cache keeps (insertion order =
-# age; the oldest go first).
-MEMO_CAP = 16
-
-
-def recall(cache, key, objs):
-    """The value kept under ``key`` by :func:`remember` for these very
-    objects, else None."""
-    hit = cache.get(key)
-    if hit is not None and all(r() is o for r, o in zip(hit[:-1], objs)):
-        return hit[-1]
-    return None
-
-
-def remember(cache, key, objs, value) -> None:
-    """Keep ``value`` in ``cache`` under ``key`` = (kind, the ids of
-    ``objs``, ...), weakref-guarded on ``objs`` against id reuse.  First
-    evicts the kind's entries for the same objects under another key (a
-    stale checksum) and those whose objects are gone (they would pin their
-    values), then the oldest of the kind beyond ``MEMO_CAP``."""
-    n = 1 + len(objs)
-    for k in [
-        k for k, v in cache.items()
-        if isinstance(k, tuple) and k[:1] == key[:1]
-        and ((k[:n] == key[:n] and k != key) or any(r() is None for r in v[:-1]))
-    ]:
-        del cache[k]
-    cache[key] = (*(weakref.ref(o) for o in objs), value)
-    mine = [k for k in cache if isinstance(k, tuple) and k[:1] == key[:1]]
-    for k in mine[: max(0, len(mine) - MEMO_CAP)]:
-        del cache[k]
-
-
 @observability.spanned("rank.prep")
-def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, cache=None, keys=None):
-    """Tiered, device-staged rank inputs, memoized across metric calls.
+def _prepare_rank_tiers(test_csr, train_csr, user_block: int, device, memo=None, keys=None):
+    """Tiered, device-staged rank inputs, kept in ``memo``
+    (:class:`~lightfm_tpu_torch.sparse.Memo`) when given.
 
-    The cache key is the IDENTITY of the test/train matrices (weakref-
-    guarded against id reuse) plus shape/nnz and their content keys
-    (``keys``, else :func:`~lightfm_tpu_torch.sparse.content_key` of each),
-    so the per-epoch metric loop skips host padding and host->device copies
-    after the first call, and in-place mutation misses instead of going
-    stale.  ``keys`` may be the content keys of the matrices these were
-    converted from, since a conversion is a function of its source's content.
+    They are kept for the test and train matrices themselves under their
+    content keys (``keys``, else :func:`~lightfm_tpu_torch.sparse.content_key`
+    of each), so the per-epoch metric loop skips host padding and
+    host->device copies after the first call, and an edit in place misses
+    instead of going stale.  ``keys`` may be the content keys of the
+    matrices these were converted from, since a conversion is a function of
+    its source's content.
     """
-    key = None
-    if cache is not None:
-        if keys is None:
-            keys = (content_key(test_csr), content_key(train_csr))
-        key = (
-            "rank_prep", id(test_csr), id(train_csr),
-            test_csr.shape, test_csr.nnz, train_csr.nnz, user_block, str(device), *keys,
-        )
-        tiers = recall(cache, key, (test_csr, train_csr))
-        if tiers is not None:
-            observability.count("rank_prep_hits")
-            return tiers
-    observability.count("rank_prep_misses")
-    # Only users WITH test interactions are ranked (template:1232-1323).
-    users = np.flatnonzero(np.diff(test_csr.indptr) > 0)
-    tr_lengths = np.diff(train_csr.indptr)
-    tiers = [
-        _build_tier(test_csr, train_csr, tier_users, user_block, device)
-        for tier_users in _split_degree_tiers(tr_lengths, users)
-        if len(tier_users)
-    ]
-    if cache is not None:
-        remember(cache, key, (test_csr, train_csr), tiers)
-    return tiers
+
+    def build():
+        # Only users WITH test interactions are ranked (template:1232-1323).
+        users = np.flatnonzero(np.diff(test_csr.indptr) > 0)
+        tr_lengths = np.diff(train_csr.indptr)
+        return [
+            _build_tier(test_csr, train_csr, tier_users, user_block, device)
+            for tier_users in _split_degree_tiers(tr_lengths, users)
+            if len(tier_users)
+        ]
+
+    if memo is None:
+        observability.count("rank_prep_misses")
+        return build()
+    if keys is None:
+        keys = (content_key(test_csr), content_key(train_csr))
+    return memo.get("rank_prep", (test_csr, train_csr), (user_block, str(device), *keys),
+                    build, counter="rank_prep")
 
 
 def _fused_tier(T: int, device_type: str) -> bool:
@@ -458,16 +418,16 @@ def predict_ranks_padded(
     train_csr,
     user_block: int = 256,
     item_block: int = 8192,
-    cache=None,
+    memo=None,
     user_placement=None,
     keys=None,
 ) -> np.ndarray:
     """Ranks for every nnz of ``test_csr``, aligned with the CSR's data
     array (the layout the reference writes, `lightfm/lightfm.py:968-985`).
 
-    Users are processed in train-degree tiers, and the host prep is
-    memoized in ``cache`` when given, under the matrices' content ``keys``
-    when given (see :func:`_prepare_rank_tiers`).
+    Users are processed in train-degree tiers, and the host prep is kept in
+    ``memo`` when given, under the matrices' content ``keys`` when given
+    (see :func:`_prepare_rank_tiers`).
     ``state.item_table`` is the whole item table (the catalog every tier
     scores); ``state.user_table`` is the whole user table, or this rank's
     part of it with ``user_placement`` its
@@ -481,7 +441,7 @@ def predict_ranks_padded(
 
     device = state.user_table.device
     out = np.empty(test_csr.nnz, dtype=np.float32)
-    for tier in _prepare_rank_tiers(test_csr, train_csr, user_block, device, cache, keys):
+    for tier in _prepare_rank_tiers(test_csr, train_csr, user_block, device, memo, keys):
         T = tier.test_idx.shape[1]
         ub = int(min(user_block, tier.user_ids.shape[0]))
         args = (

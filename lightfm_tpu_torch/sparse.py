@@ -6,11 +6,13 @@ entries, which are exact no-ops in every weighted sum, so the read path
 needs no masking.  :class:`PaddedSortedRows` keeps each row's columns
 sorted and padded with an out-of-range sentinel for the training path's
 negative-rejection membership tests (the reference's ``bsearch``,
-``_lightfm_fast.pyx.template:270-284``).
+``_lightfm_fast.pyx.template:270-284``).  What the port derives from a
+caller's matrices is kept in a :class:`Memo` under their :func:`content_key`.
 """
 
 from __future__ import annotations
 
+import weakref
 import zlib
 from typing import NamedTuple, Optional
 
@@ -40,32 +42,69 @@ def _first_attr(m, names):
     return None
 
 
-def _fingerprint(m) -> tuple:
-    return tuple([getattr(m, "shape", None), getattr(m, "nnz", None)]
-                 + _crcs((getattr(m, "data", None), _first_attr(m, ("indices", "col")))))
-
-
-@observability.spanned("fingerprint")
-def content_fingerprint(m) -> tuple:
-    """Content checksum of a scipy matrix for identity-keyed caches.
-
-    CRC32 over the raw bytes of ``data`` and ``indices`` (or COO ``col``),
-    so in-place edits between calls -- position swaps and compensating
-    edits included -- miss the cache instead of returning stale results.
-    The bytes hashed add to the counter ``fingerprint_bytes``.
-    """
-    return _fingerprint(m)
-
-
 @observability.spanned("fingerprint")
 def content_key(m) -> tuple:
-    """:func:`content_fingerprint` of ``m`` and a CRC32 of the array that
-    places its entries in rows (``indptr``, or COO ``row``), under one
-    ``fingerprint`` span: a key that every content-derived result of a
-    ``predict_rank`` call can share, so each input matrix is hashed once a
-    call.  An edit to ``indptr`` alone changes it too.
+    """Content key of a scipy matrix, for :class:`Memo`.
+
+    Its first part is the shape, the nnz and a CRC32 of the raw bytes of
+    ``data`` and ``indices`` (or COO ``col``), the JAX package's content
+    checksum; the second a CRC32 of the array that places the entries in
+    rows (``indptr``, or COO ``row``).  So an edit in place between calls
+    -- position swaps, compensating edits and an ``indptr`` edit included
+    -- gives another key.  The bytes hashed add to the counter
+    ``fingerprint_bytes``.
     """
-    return _fingerprint(m), *_crcs((_first_attr(m, ("indptr", "row")),))
+    head = (getattr(m, "shape", None), getattr(m, "nnz", None),
+            *_crcs((getattr(m, "data", None), _first_attr(m, ("indices", "col")))))
+    return head, *_crcs((_first_attr(m, ("indptr", "row")),))
+
+
+class Memo:
+    """Values derived from callers' objects, kept across calls.
+
+    A value is kept under ``(kind, the objects' ids, extra)``, where
+    ``extra`` holds what else its build reads: the objects' content keys,
+    so that an edit in place misses, and any option or setting.  A lookup
+    hits only while every object it was kept for is alive and is the very
+    object (weakrefs guard against id reuse).  A store first evicts the
+    kind's entries for the same objects under another key and every entry
+    whose objects are gone (they would pin their values), then the oldest
+    of the kind beyond ``cap``.  Nothing is kept for objects that cannot be
+    weakref'd, nor a value that is one of its objects (its entry would keep
+    it alive).  A kind with no objects is keyed by ``extra`` alone.
+    """
+
+    def __init__(self, cap: int):
+        self.cap = cap
+        self._entries: dict = {}
+
+    def get(self, kind: str, objs: tuple, extra: tuple, build, counter: str | None = None):
+        """The value kept for ``objs`` under ``kind`` and ``extra``, else
+        ``build()``'s, kept.  ``counter`` names the counters
+        ``<counter>_hits`` and ``<counter>_misses`` that count each lookup."""
+        key = (kind, tuple(map(id, objs)), extra)
+        hit = self._entries.get(key)
+        if hit is not None and all(r() is o for r, o in zip(hit[0], objs)):
+            if counter:
+                observability.count(counter + "_hits")
+            return hit[1]
+        if counter:
+            observability.count(counter + "_misses")
+        value = build()
+        if any(value is o for o in objs):
+            return value
+        try:
+            refs = tuple(weakref.ref(o) for o in objs)
+        except TypeError:
+            return value
+        for k in [k for k, (rs, _) in self._entries.items()
+                  if (objs and k[:2] == key[:2]) or any(r() is None for r in rs)]:
+            del self._entries[k]
+        self._entries[key] = (refs, value)
+        mine = [k for k in self._entries if k[0] == kind]
+        for k in mine[: max(0, len(mine) - self.cap)]:
+            del self._entries[k]
+        return value
 
 
 def _round_up(x: int, m: int) -> int:

@@ -185,10 +185,44 @@ def test_transposed_features_gate_and_memo():
     assert m._transposed_features(feats, padded, (500 + 540) // 32 - 1, "default") is None
     first = m._transposed_features(feats, padded, 1024, "default")
     assert isinstance(first, fw.TransposedFeats) and first.fat_rows is not None
-    # A fresh model on the same matrix reuses the memoized structure.
+    # A fresh model on the same matrix reuses the kept structure.
     assert _tm(loss="warp")._transposed_features(feats, padded, 1024, "default") is first
-    assert m._transposed_features(feats, padded, 1024, "highest") is not first
-    assert any(k[2] == id(feats) for k in tmodel._TRANSPOSE_MEMO)
+    mine = [k for k in tmodel._TRANSPOSED._entries if k[1] == (id(feats),)]
+    assert len(mine) == 1 and mine[0][2][0] == "default"
+    highest = m._transposed_features(feats, padded, 1024, "highest")
+    assert highest is not first
+    # The other precision's entry replaces it (one entry a matrix).
+    (key,) = [k for k in tmodel._TRANSPOSED._entries if k[1] == (id(feats),)]
+    assert key[2][0] == "highest"
+    assert m._transposed_features(feats, padded, 1024, "highest") is highest
+
+
+def _assert_same_transposed(got, want):
+    if want is None:
+        assert got is None
+        return
+    assert got is not None
+    for name in ("fat_rows", "fat_w", "fat_w2"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got.thin.idx, want.thin.idx) and torch.equal(got.thin.wts, want.thin.wts)
+
+
+@pytest.mark.parametrize("budgets", [("64", None), (None, "64")],
+                         ids=["over_then_default", "default_then_over"])
+def test_transposed_features_follow_the_fat_tier_budget(monkeypatch, budgets):
+    """A change of ``LIGHTFM_TPU_FAT_TIER_BYTES`` between two calls on one
+    matrix gives what a fresh build under the new budget gives."""
+    feats = _tag_feats(500, n_tags=40)
+    m = _tm(loss="warp")
+    padded = m._pad_features(feats)
+    for budget in budgets:
+        if budget is None:
+            monkeypatch.delenv("LIGHTFM_TPU_FAT_TIER_BYTES", raising=False)
+        else:
+            monkeypatch.setenv("LIGHTFM_TPU_FAT_TIER_BYTES", budget)
+        got = m._transposed_features(feats, padded, 1024, "default")
+        _assert_same_transposed(got, m._build_transposed(feats, "default"))
+    assert (got is None) == (budgets[-1] == "64")
 
 
 @pytest.mark.parametrize("variant", ["aggregated", "scatter"])

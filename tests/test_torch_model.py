@@ -177,6 +177,28 @@ def test_recommend_streaming_matches_dense(models, monkeypatch):
     assert i.max() < N_ITEMS
 
 
+def test_predict_follows_an_indptr_edit_of_the_item_features(models):
+    """An item-feature CSR whose ``indptr`` alone is edited in place between
+    two ``predict`` calls is padded again: the second call equals a fresh
+    model's."""
+    _, tm = models
+    model = pickle.loads(pickle.dumps(tm))
+    rng = np.random.RandomState(4)
+    cols = np.stack([np.arange(N_ITEMS), rng.randint(0, N_ITEMS, N_ITEMS)], 1).ravel()
+    feats = sp.csr_matrix(
+        (np.full(2 * N_ITEMS, 0.5, np.float32), cols, np.arange(0, 2 * N_ITEMS + 1, 2)),
+        shape=(N_ITEMS, N_ITEMS),
+    )
+    users = np.repeat(np.arange(3), N_ITEMS)
+    items = np.tile(np.arange(N_ITEMS), 3)
+    before = model.predict(users, items, item_features=feats)
+    feats.indptr[1] -= 1  # item 0's second feature moves to item 1
+    got = model.predict(users, items, item_features=feats)
+    want = pickle.loads(pickle.dumps(tm)).predict(users, items, item_features=feats)
+    assert not np.array_equal(before, want)
+    assert np.array_equal(got, want)
+
+
 def test_recommend_rejects_a_mesh():
     """A mesh's row partition serves (a state set without a fit is whole),
     and a mesh that is not a ``lightfm_tpu_torch.parallel.Mesh`` raises."""

@@ -26,7 +26,7 @@ from lightfm_tpu_torch import LightFM, observability
 from lightfm_tpu_torch.interop import state_from_numpy
 from lightfm_tpu_torch.ops import rank_counts as rc
 from lightfm_tpu_torch.ops import ranking
-from lightfm_tpu_torch.sparse import identity_rows
+from lightfm_tpu_torch.sparse import Memo, identity_rows
 
 
 def _t(a):
@@ -228,11 +228,11 @@ def test_predict_ranks_padded_heavy_tier_matches_jax():
     want = jax_ranking.predict_ranks_padded(
         jstate, jax_identity_rows(n_users), jax_identity_rows(n_items), test, train
     )
-    cache = {}
+    memo = Memo(cap=16)
     rc.reset_launches()
     got = ranking.predict_ranks_padded(
         tstate, identity_rows(n_users), identity_rows(n_items), test, train,
-        cache=cache,
+        memo=memo,
     )
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1
@@ -241,10 +241,10 @@ def test_predict_ranks_padded_heavy_tier_matches_jax():
     assert rc.launches == {"rank_counts": 0, "pair_scores": 0}
     again = ranking.predict_ranks_padded(
         tstate, identity_rows(n_users), identity_rows(n_items), test, train,
-        cache=cache,
+        memo=memo,
     )
     assert np.array_equal(got, again)
-    assert sum(1 for k in cache if k[0] == "rank_prep") == 1
+    assert sum(1 for k in memo._entries if k[0] == "rank_prep") == 1
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +387,45 @@ def test_predict_rank_without_a_check_counts_no_intersections(memo_model, unchec
             model.predict_rank(test, **kwargs)
     assert not {"intersection_hits", "intersection_misses"} & set(rec.counters)
     assert rec.counters["rank_prep_misses"] == 1 and rec.counters["rank_prep_hits"] == 1
+
+
+def _set_item_biases(model):
+    model.item_biases = np.linspace(-1.0, 1.0, _MEMO_ITEMS, dtype=np.float32)
+
+
+def _edit_a_view(model):
+    model.item_biases[::2] += 1.0  # folded back by the next call
+
+
+def _fit_partial(model):
+    model.fit_partial(_memo_pair()[0], epochs=1)
+
+
+def _move_device(model):
+    model.device = "cpu"
+
+
+@pytest.mark.parametrize("change,prep", [
+    (_set_item_biases, "rank_prep_hits"),
+    (_edit_a_view, "rank_prep_hits"),
+    (_fit_partial, "rank_prep_hits"),
+    (_move_device, "rank_prep_misses"),  # the staged tensors were on the old device
+], ids=["set_field", "view_edit", "fit_partial", "device"])
+def test_a_state_change_rebuilds_the_catalog_and_keeps_the_staged_inputs(
+        memo_model, change, prep):
+    train, test = _memo_pair()
+    model = _fresh(memo_model)
+    model.predict_rank(test, train_interactions=train)
+    model.recommend(np.arange(3), k=5)
+    assert ("catalog", _MEMO_ITEMS) in model._state_cache
+    change(model)
+    with observability.recording() as rec:
+        got = model.predict_rank(test, train_interactions=train)
+    assert rec.counters[prep] == 1 and sum(
+        n for c, n in rec.counters.items() if c.startswith("rank_prep_")) == 1
+    assert ("catalog", _MEMO_ITEMS) not in model._state_cache
+    fresh = _fresh(model)
+    want = fresh.predict_rank(test, train_interactions=train)
+    assert got.data.tobytes() == want.data.tobytes()
+    for a, b in zip(model.recommend(np.arange(3), k=5), fresh.recommend(np.arange(3), k=5)):
+        assert np.array_equal(a, b)

@@ -69,13 +69,90 @@ def test_identity_rows():
 
 
 def test_content_fingerprint_matches_jax_and_sees_swaps():
+    """``content_key``'s first part is the JAX package's ``content_fingerprint``;
+    a swap of entries and an ``indptr`` edit each give another key."""
     csr = _skewed_csr(seed=2)
-    assert sparse.content_fingerprint(csr) == jax_sparse.content_fingerprint(csr)
+    key = sparse.content_key(csr)
+    assert key[0] == jax_sparse.content_fingerprint(csr)
     swapped = csr.copy()
     swapped.data[[0, 1]] = swapped.data[[1, 0]]
-    assert sparse.content_fingerprint(swapped) != sparse.content_fingerprint(csr)
+    assert sparse.content_key(swapped) != key
+    moved = csr.copy()
+    moved.indptr[4] -= 1  # the full row 3's last entry moves to row 4
+    assert sparse.content_key(moved)[0] == key[0] and sparse.content_key(moved) != key
     coo = csr.tocoo()
-    assert sparse.content_fingerprint(coo) == jax_sparse.content_fingerprint(coo)
+    assert sparse.content_key(coo)[0] == jax_sparse.content_fingerprint(coo)
+
+
+class _Obj:
+    """A weakref-able stand-in for a caller's matrix."""
+
+
+def _dead_entry_is_evicted(memo):
+    gone = _Obj()
+    memo.get("pad", (gone,), (1,), lambda: "old")
+    del gone
+    kept = _Obj()
+    memo.get("other", (kept,), (1,), lambda: "new")  # a store of any kind sweeps it
+    assert [k[0] for k in memo._entries] == ["other"]
+
+
+def _stale_key_is_replaced(memo):
+    m = _Obj()
+    assert memo.get("pad", (m,), ("before",), lambda: 1) == 1
+    assert memo.get("pad", (m,), ("after",), lambda: 2) == 2
+    assert list(memo._entries) == [("pad", (id(m),), ("after",))]
+    assert memo.get("pad", (m,), ("after",), lambda: 3) == 2
+
+
+def _cap_applies_per_kind(memo):
+    objs = [_Obj() for _ in range(3)]
+    for i, o in enumerate(objs):
+        memo.get("a", (o,), (), lambda i=i: i)
+    other = _Obj()
+    memo.get("b", (other,), (), lambda: "b")
+    assert list(memo._entries) == [("a", (id(objs[1]),), ()), ("a", (id(objs[2]),), ()),
+                                   ("b", (id(other),), ())]
+    assert memo.get("a", (objs[0],), (), lambda: "again") == "again"
+    assert memo.get("b", (other,), (), lambda: "rebuilt") == "b"
+
+
+def _unreferenceable_input_is_skipped(memo):
+    key = (1, 2)  # a tuple cannot be weakref'd
+    assert memo.get("k", (key,), (), lambda: "v") == "v"
+    assert not memo._entries
+
+
+def _own_input_is_not_kept(memo):
+    m = _Obj()
+    assert memo.get("conv", (m,), (), lambda: m) is m
+    assert not memo._entries
+
+
+def _no_object_is_keyed_by_extra(memo):
+    assert memo.get("id", (), (5,), lambda: "five") == "five"
+    assert memo.get("id", (), (6,), lambda: "six") == "six"
+    assert memo.get("id", (), (5,), lambda: "again") == "five"
+    assert len(memo._entries) == 2
+
+
+def _lookups_are_counted(memo):
+    from lightfm_tpu_torch import observability
+
+    m = _Obj()
+    with observability.recording() as rec:
+        for _ in range(3):
+            memo.get("k", (m,), (), lambda: "v", counter="probe")
+    assert rec.counters["probe_misses"] == 1 and rec.counters["probe_hits"] == 2
+
+
+@pytest.mark.parametrize("case", [
+    _dead_entry_is_evicted, _stale_key_is_replaced, _cap_applies_per_kind,
+    _unreferenceable_input_is_skipped, _own_input_is_not_kept, _no_object_is_keyed_by_extra,
+    _lookups_are_counted,
+], ids=lambda f: f.__name__.strip("_"))
+def test_memo_rules(case):
+    case(sparse.Memo(cap=2))
 
 
 @pytest.mark.parametrize(
