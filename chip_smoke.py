@@ -18,7 +18,10 @@ CUDA-event, profiler and host times for each, the gradient-sums kernel
 (K3) on the same touch layouts, the generic step's adagrad kernel
 (``touch_adagrad_update``, phase 4c) at the ``warp-hybrid-l2`` cell's item
 and user touches, whole and split as the table partitions split them, with
-one epoch of a generic hybrid fit through it, and trains with ``LightFM.fit`` at the
+one epoch of a generic hybrid fit through it, the generic step's candidate
+scoring (``feature_sums``, phase 4d) at that cell's step shape and at edge
+shapes, with the cell's compared numbers read over 24 seeds
+(``portbench/readings_generic.py``), and trains with ``LightFM.fit`` at the
 ``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
 users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
 epochs with a train-sample AUC guard, a same-seed determinism check, one
@@ -31,7 +34,7 @@ epoch and its own step spans.  Last, the whole-fit WARP kernel (K5)
 runs a 30-epoch fit at the size of the synthetic MovieLens 100k (943 users
 x 1,682 items, D=10) in one launch, against its plain version.  Phase 8
 drives the generic training path (PyTorch, with its adagrad pass through
-``touch_adagrad_update`` and no other hand-written kernel):
+``touch_adagrad_update`` and its feature sums through ``feature_sums``):
 the quickstart's 30-epoch WARP fit at that size with ``fast_path="auto"``
 (quality against the port's own CPU fit), one epoch of every loss and
 schedule (and L2) on the card against the CPU with the same draws and
@@ -1356,6 +1359,7 @@ def touch_update_fit(torch, seed: int) -> dict:
     the WARP step, which synchronises)."""
     from lightfm_tpu_torch import LightFM, losses, observability
     from lightfm_tpu_torch.ops import adagrad_update as au
+    from lightfm_tpu_torch.ops import feature_sums as fsm
 
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
     tags = tag_features(TRAIN_ITEMS, seed=seed + 3)[:, TRAIN_ITEMS:].tocsr()
@@ -1372,6 +1376,7 @@ def touch_update_fit(torch, seed: int) -> dict:
     model = LightFM(loss="warp", item_alpha=1e-6, no_components=30, batch_size=TRAIN_BATCH,
                     random_state=seed, device=DEVICE)
     au.reset_launches()
+    fsm.reset_launches()
     losses.LOSS_STEPS["warp"] = counted
     try:
         with observability.recording() as rec:
@@ -1388,12 +1393,238 @@ def touch_update_fit(torch, seed: int) -> dict:
           f"{len(steps)} steps)")
     check(all(i > 0 and u > 0 for i, u in per_step),
           "update_kernel_touches.item and .user grow on every step")
+    scoring = rec.named("kernel.feature_sums")
+    rows = rec.counters.get("feature_sum_rows", 0)
+    check(fsm.launches["feature_sums"] == len(scoring) == len(steps)
+          and all(rec.spans[s.parent].name == "step.score" for s in scoring)
+          and rows == (HYB_C * TRAIN_BATCH) * len(steps),
+          f"feature_sums launched once a step inside step.score on its {HYB_C} x {TRAIN_BATCH} "
+          f"candidates ({fsm.launches['feature_sums']} launches, {rows} rows, "
+          f"{len(steps)} steps)")
     out = {"steps": len(steps), "launches": au.launches["touch_adagrad_update"],
+           "feature_sums_launches": fsm.launches["feature_sums"], "feature_sum_rows": rows,
            "kernel_touches_item": [i for i, _ in per_step],
            "kernel_touches_user": [u for _, u in per_step],
            "span_ms": float(np.mean([(s.end_ns - s.start_ns) / 1e6 for s in spans]))}
     log("  hybrid fit, one epoch: " + json.dumps(out))
     return out
+
+
+# The generic step's scoring (phase 4d) at warp-hybrid-l2's shapes: the
+# K + 1 = 11 candidates of each of a batch's 131,072 rows, each item 1 to 5
+# of 2,048 tags by a Zipf law of exponent 1 (weight 1.0) padded to 8 slots,
+# W = 32 (D = 30).  Then the cell's compared numbers over GAP_SEEDS seeds.
+HYB_C, HYB_P = 11, 8
+GAP_SEEDS, GAP_WINDOW_S = 24, 3.0
+GAP_CELL = "warp-hybrid-l2.fit"
+
+
+def zipf_tag_rows(rng, n_rows: int, P: int, n_tags: int, max_tags: int):
+    """Padded tag rows ``(idx, wts)`` (numpy, [n_rows, P]): 1 to
+    ``max_tags`` tags a row by a Zipf law of exponent 1 over ``n_tags``,
+    weight 1.0, the padding trailing (feature 0, weight 0)."""
+    p = 1.0 / np.arange(1, n_tags + 1)
+    n = rng.randint(1, max_tags + 1, n_rows)
+    draws = rng.choice(n_tags, (n_rows, max_tags), p=p / p.sum())
+    idx = np.zeros((n_rows, P), np.int32)
+    wts = np.zeros((n_rows, P), np.float32)
+    for k in range(max_tags):
+        live = n > k
+        idx[live, k] = draws[live, k]
+        wts[live, k] = 1.0
+    return idx, wts
+
+
+def ragged_rows(rng, n_rows: int, P: int, n_feats: int):
+    """Padded rows of 0 to ``P`` features (uniform ids, weights in [0.25,
+    1.75)), every 97th row all padding and every 13th with a zero weight
+    inside its features."""
+    n = rng.randint(0, P + 1, n_rows)
+    n[::97] = 0
+    live = np.arange(P)[None, :] < n[:, None]
+    idx = np.where(live, rng.randint(0, n_feats, (n_rows, P)), 0).astype(np.int32)
+    wts = np.where(live, 0.25 + 1.5 * rng.rand(n_rows, P), 0.0).astype(np.float32)
+    wts[::13, 0] = 0.0
+    return idx, wts
+
+
+def check_feature_sums(torch, table, idx, wts, ids, scale, users, what: str) -> dict:
+    """The kernel against its plain version: two launches bitwise equal;
+    each rep within (P + 1) float32 ulps (2^-23 relative) of its entry's
+    sum of |w * scale * row|; each score within (W + 1) ulps of its sum of
+    |u * rep| (bias terms included) of the plain scoring of the kernel's
+    own reps.  Returns the worst shares of those bounds."""
+    from lightfm_tpu_torch.ops import feature_sums as fsm
+    from lightfm_tpu_torch.ops.representation import score_candidates
+
+    reps, scores = fsm.feature_sums(table, idx, wts, ids, scale, users)
+    again, again_s = fsm.feature_sums(table, idx, wts, ids, scale, users)
+    torch.cuda.synchronize()
+    check(torch.equal(reps, again) and (scores is None or torch.equal(scores, again_s)),
+          f"{what}: two launches are bitwise equal")
+    eps = 2.0 ** -23
+    P, W = idx.shape[1], table.shape[1]
+    plain, _ = fsm.feature_sums_plain(table, idx, wts, ids, scale)
+    mag, _ = fsm.feature_sums_plain(table.abs(), idx, wts.abs(), ids,
+                                    None if scale is None else scale.abs())
+    rep_share = float(((reps - plain).abs() / ((P + 1) * eps * mag).clamp_min(1e-30)).max())
+    out = {"rep_share": rep_share, "max_abs_err": float((reps - plain).abs().max())}
+    del plain, mag
+    check(rep_share <= 1.0, f"{what}: reps within (P + 1) ulps of sum |w row| of the plain "
+          f"version (worst {rep_share:.3g} of the bound)")
+    if users is not None:
+        C = ids.numel() // users.shape[0]
+        want = score_candidates(users, reps, C)
+        smag = score_candidates(users.abs(), reps.abs(), C)
+        score_share = float(((scores - want).abs()
+                             / ((W + 1) * eps * smag).clamp_min(1e-30)).max())
+        out["score_share"] = score_share
+        out["max_abs_err"] = max(out["max_abs_err"], float((scores - want).abs().max()))
+        check(score_share <= 1.0, f"{what}: scores within (W + 1) ulps of sum |u rep| of the "
+              f"plain scoring (worst {score_share:.3g} of the bound)")
+    return out
+
+
+def feature_sums_checks(torch, seed: int, fit: dict) -> dict:
+    """Phase 4d: ``feature_sums``, the generic step's candidate scoring,
+    against its plain version at the hybrid cell's step shape and at edge
+    shapes (W up to 200, P up to 40, C up to 40, no users, all-padding rows,
+    zero weights among a row's features); ids outside the rows read NaN
+    and leave the other rows bitwise as they were.  Times: the kernel
+    (CUDA events, profiler, host enqueue), its plain version, and the
+    gather plus GEMV it replaced (``library_ms``), beside the bytes bound of
+    ``portbench/work_hybrid.score_bytes``.  ``fit`` is phase 4c's generic
+    hybrid epoch, whose every step launched the kernel once on its
+    11 x 131,072 candidates.  Then the hybrid cell's compared numbers over
+    GAP_SEEDS seeds (``portbench/readings_generic.py``), each under its
+    limit."""
+    from lightfm_tpu_torch import observability
+    from lightfm_tpu_torch.ops import _build
+    from lightfm_tpu_torch.ops import feature_sums as fsm
+
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 8)
+    B, C, P, W = TRAIN_BATCH, HYB_C, HYB_P, HYB_W
+    log(f"phase 4d: the generic step's scoring kernel (feature_sums) vs plain, B={B}, C={C}, "
+        f"{HYB_TAGS} tags, P={P}, W={W}")
+    ptxas = [ln.strip() for ln in _build.build_log("feature_sums").splitlines()
+             if "registers" in ln or "spill" in ln]
+    for line in ptxas:
+        log("  ptxas feature_sums:", line)
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln for ln in ptxas if "spill" in ln),
+          f"ptxas: no feature_sums template spills ({len(ptxas)} lines)")
+
+    idx_np, wts_np = zipf_tag_rows(rng, TRAIN_ITEMS, P, HYB_TAGS, 5)
+    idx, wts = torch.from_numpy(idx_np).to(dev), torch.from_numpy(wts_np).to(dev)
+    table = torch.from_numpy((0.1 * rng.randn(HYB_TAGS, W)).astype(np.float32)).to(dev)
+    users = torch.from_numpy((0.1 * rng.randn(B, W)).astype(np.float32)).to(dev)
+    ids_np = rng.randint(0, TRAIN_ITEMS, C * B).astype(np.int32)
+    ids = torch.from_numpy(ids_np).to(dev)
+    scale = torch.tensor(np.float32(np.exp(3e-4)), device=dev)
+    fsm.reset_launches()
+    with observability.recording() as rec:
+        main = check_feature_sums(torch, table, idx, wts, ids, scale, users, "hybrid step")
+    check(fsm.launches["feature_sums"] == 2 and rec.counters["feature_sum_rows"] == 2 * C * B
+          and len(rec.named("kernel.feature_sums")) == 2,
+          f"two kernel calls counted 2 launches and {2 * C * B} rows "
+          f"({fsm.launches['feature_sums']}, {rec.counters.get('feature_sum_rows')})")
+    bad = ids.clone()
+    bad[:3] = torch.tensor([TRAIN_ITEMS, -1, 2**31 - 1], dtype=torch.int32, device=dev)
+    got, got_s = fsm.feature_sums(table, idx, wts, bad, scale, users)
+    want, want_s = fsm.feature_sums(table, idx, wts, ids, scale, users)
+    check(bool(torch.isnan(got[:3]).all() and torch.isnan(got_s.view(-1)[:3]).all())
+          and torch.equal(got[3:], want[3:])
+          and torch.equal(got_s.view(-1)[3:], want_s.view(-1)[3:]),
+          "ids outside the rows read NaN and leave every other row and score bitwise as it was")
+    del got, got_s, want, want_s, bad
+
+    edges = {}
+    for W_e, P_e, C_e, scaled, with_users in ((72, 40, 11, True, True), (200, 8, 3, False, True),
+                                             (1, 3, 2, True, True), (32, 33, 1, False, False),
+                                             (40, 8, 40, True, True)):
+        name = f"W={W_e} P={P_e} C={C_e}" + ("" if with_users else " no users")
+        B_e, F_e = 4096, 2048
+        ri, rw = ragged_rows(rng, 3000, P_e, F_e)
+        e_ids = torch.from_numpy(rng.randint(0, 3000, C_e * B_e).astype(np.int32)).to(dev)
+        e_table = torch.from_numpy(rng.randn(F_e, W_e).astype(np.float32)).to(dev)
+        e_users = (torch.from_numpy(rng.randn(B_e, W_e).astype(np.float32)).to(dev)
+                   if with_users else None)
+        edges[name] = check_feature_sums(
+            torch, e_table, torch.from_numpy(ri).to(dev), torch.from_numpy(rw).to(dev), e_ids,
+            torch.tensor(np.float32(0.8125), device=dev) if scaled else None, e_users, name)
+
+    n_real = float((wts_np[ids_np] != 0).sum())
+
+    def kernel():
+        fsm.feature_sums(table, idx, wts, ids, scale, users)
+
+    bytes_ = 8.0 * n_real + 4.0 * B * W + 4.0 * HYB_TAGS * W
+    flops = 2.0 * (W - 1) * (n_real + C * B)
+    split = device_ms(torch, kernel)
+    out = {
+        "B": B, "C": C, "P": P, "W": W, "tags": HYB_TAGS, "real_slots": n_real,
+        "ms": time_ms(torch, kernel, reps=20), "device_ms": sum(split.values()),
+        "device_split": split, "host_ms": host_ms(torch, kernel),
+        "plain_ms": time_ms(torch, lambda: fsm.feature_sums_plain(table, idx, wts, ids, scale,
+                                                                   users), reps=5),
+        "library_ms": time_ms(torch, lambda: fsm.feature_sums_plain(table, idx, wts, ids,
+                                                                     scale), reps=5),
+        "bound_ms": 1e3 * max(bytes_ / HBM_BYTES_PER_S, flops / 66.9e12),
+        "reps_write_ms": 1e3 * 4.0 * C * B * W / HBM_BYTES_PER_S,
+        **main, "edges": edges,
+        "fit": {k: fit[k] for k in ("steps", "feature_sums_launches", "feature_sum_rows")},
+    }
+    log("  hybrid step: " + json.dumps(out))
+    del idx, wts, table, users, ids
+    torch.cuda.empty_cache()
+    out["gaps"] = hybrid_gaps(seed)
+    return out
+
+
+def hybrid_gaps(seed: int) -> dict:
+    """The hybrid cell's compared numbers (``grad_norm_gap``,
+    ``change1_norm_gap``, ``log_scale_gap``, ``fold_gap``) over GAP_SEEDS
+    seeds of ``portbench/readings_generic.py`` (a child process, its window
+    GAP_WINDOW_S): every reading under the cell's limit; their lowest,
+    median and highest."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "limits", f"{GAP_CELL}.json")) as fh:
+        limits = json.load(fh)
+    seeds = [3_100_000_000 + 1_000 * seed + k for k in range(GAP_SEEDS)]
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "portbench/readings_generic.py", "--workload", GAP_CELL,
+         "--window", str(GAP_WINDOW_S), "--seeds", *map(str, seeds)],
+        cwd=root, capture_output=True, text=True)
+    check(run.returncode == 0, f"readings_generic.py ran {GAP_SEEDS} seeds (exit "
+          f"{run.returncode}{'' if run.returncode == 0 else ': ' + run.stderr[-2000:]})")
+    rows = [json.loads(ln)["program"] for ln in run.stdout.splitlines() if ln.startswith("{")]
+    check(len(rows) == GAP_SEEDS, f"{len(rows)} readings of {GAP_SEEDS} seeds")
+    out = {}
+    for name, limit in limits.items():
+        vals = sorted(float(r[name]) for r in rows)
+        out[name] = {"lowest": vals[0], "median": float(np.median(vals)), "highest": vals[-1],
+                     "limit": limit}
+        check(vals[-1] < limit, f"{GAP_CELL} {name}: every reading under {limit:g} "
+              f"({vals[0]:.3g}-{vals[-1]:.3g}, median {out[name]['median']:.3g})")
+    log(f"  {GAP_CELL}, {GAP_SEEDS} seeds ({seeds[0]}-{seeds[-1]}), "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(out))
+    return out
+
+
+def feature_sums_record(fs_rec: dict) -> dict:
+    """Phase 4d's kernel record."""
+    return {
+        "name": "feature_sums", "route": "cuda",
+        "source": "lightfm_tpu_torch/csrc/feature_sums.cu",
+        "replaces": "lightfm_tpu/ops/representation.py:22 (XLA gather and sum; no pallas_call)",
+        "launches": fs_rec["fit"]["feature_sums_launches"],
+        "max_abs_err": fs_rec["max_abs_err"], "ms": fs_rec["ms"], "plain_ms": fs_rec["plain_ms"],
+        "bound_ms": fs_rec["bound_ms"], "bound_by": "bytes", "library_ms": fs_rec["library_ms"],
+        "device_ms": fs_rec["device_ms"], "host_ms": fs_rec["host_ms"],
+        "rep_share": fs_rec["rep_share"], "score_share": fs_rec["score_share"],
+        "gaps": fs_rec["gaps"],
+    }
 
 
 def clustered_interactions(n_users: int, n_items: int, nnz: int, seed: int, n_clusters: int = 64):
@@ -1446,9 +1677,9 @@ def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0, item_featu
 
 def launch_counts():
     """Every kernel wrapper's launch counts, merged."""
-    from lightfm_tpu_torch.ops import adagrad_update, grad_sums, rank_counts, warp_fit
+    from lightfm_tpu_torch.ops import adagrad_update, feature_sums, grad_sums, rank_counts, warp_fit
 
-    mods = (adagrad_update, grad_sums, rank_counts, warp_fit)
+    mods = (adagrad_update, feature_sums, grad_sums, rank_counts, warp_fit)
     return mods, lambda: {k: v for m in mods for k, v in m.launches.items()}
 
 
@@ -2189,8 +2420,9 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     adagrad pass through ``touch_adagrad_update``).  Every path runs with
     the launch counts set to 0 just before it: an adagrad step launches
     ``touch_adagrad_update`` once a table and once a chunk of a
-    ``ChunkedRows`` overflow tail, an adadelta step never, and no path
-    launches any other hand-written kernel."""
+    ``ChunkedRows`` overflow tail, an adadelta step never, a step over
+    padded or chunked item features launches ``feature_sums`` once, and no
+    path launches any other hand-written kernel."""
     import tempfile
 
     from lightfm_tpu_torch import LightFM, interop, load_model, train
@@ -2202,16 +2434,20 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     dev = torch.device(DEVICE)
     path_launches = {}
 
-    def step_kernels(what: str, launches: dict, data, steps: int, adadelta: bool = False) -> None:
+    def step_kernels(what: str, launches: dict, data, steps: int, adadelta: bool = False,
+                     sums_per_step: int = 0) -> None:
         path_launches[what] = launches
         per_step = 0 if adadelta else sum(
             1 + (f.n_chunks if isinstance(f, ChunkedRows) else 0)
             for f in (data.item_feats, data.user_feats))
-        others = {k: v for k, v in launches.items() if k != "touch_adagrad_update"}
+        others = {k: v for k, v in launches.items()
+                  if k not in ("touch_adagrad_update", "feature_sums")}
         check(launches["touch_adagrad_update"] == per_step * steps
+              and launches["feature_sums"] == sums_per_step * steps
               and all(v == 0 for v in others.values()),
-              f"{what}: touch_adagrad_update launched {per_step} times a step over {steps} steps "
-              f"({launches['touch_adagrad_update']}), no other hand-written kernel")
+              f"{what}: touch_adagrad_update launched {per_step} times a step and feature_sums "
+              f"{sums_per_step} over {steps} steps ({launches['touch_adagrad_update']}, "
+              f"{launches['feature_sums']}), no other hand-written kernel")
 
     def fit_steps(model, epochs: int) -> int:
         return epochs * (model._staged_train_data.packed.shape[1] // model._staged_batch_size)
@@ -2319,7 +2555,10 @@ def generic_path(torch, seed: int, fast: dict) -> None:
             r = LightFM(no_components=FIT_D, random_state=seed, **kw)
             _, launches = counted_all(r.fit, coo, epochs=2, item_features=item_features)
             runs.append(r)
-        step_kernels(f"fit {name} x2", launches, runs[1]._staged_train_data, fit_steps(runs[1], 2))
+        # One padded (or chunked base) item read a step: the pair's items
+        # (logistic), the candidates (WARP).
+        step_kernels(f"fit {name} x2", launches, runs[1]._staged_train_data, fit_steps(runs[1], 2),
+                     sums_per_step=1)
         check(runs[0]._staged_fast is False, f"{name}: the generic path")
         if name.startswith("warp"):
             f = runs[0]._staged_train_data.item_feats
@@ -3725,6 +3964,7 @@ def main() -> int:
     k1_cases = update_kernel_checks(torch, args.seed)
     k3_cases = grad_sums_checks(torch, args.seed)
     touch = touch_update_checks(torch, args.seed)
+    fs_rec = feature_sums_checks(torch, args.seed, touch["cases"]["fit"])
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
@@ -3779,6 +4019,7 @@ def main() -> int:
         },
     ]
     kernels.append(touch_record(touch))
+    kernels.append(feature_sums_record(fs_rec))
     k3 = hybrid["row"]
     check(hybrid["launches"]["sorted_grad_sums"] > 0, "sorted_grad_sums launched on the hybrid path")
     check(k5["launches"] > 0, "warp_fit_fused launched on the whole-fit path")

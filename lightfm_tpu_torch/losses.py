@@ -63,7 +63,12 @@ import torch
 
 from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.config import MAX_LOSS, Hyperparams
-from lightfm_tpu_torch.ops.representation import batch_representation, score_pairs, with_unit_bias
+from lightfm_tpu_torch.ops.representation import (
+    batch_representation,
+    candidate_scores,
+    score_pairs,
+    with_unit_bias,
+)
 from lightfm_tpu_torch.ops.updates import kernel_sums, sparse_update
 from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, in_positives, in_positives_slots
 from lightfm_tpu_torch.state import ModelState
@@ -330,16 +335,6 @@ def logistic_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
                             batch.item_ids, u_rep, i_rep, loss, batch.valid, mesh, placement)
 
 
-def _score_candidates(u_rep: torch.Tensor, reps_flat: torch.Tensor, K: int) -> torch.Tensor:
-    """[K, B] scores of slot-major candidate reps ``[K*B, W]`` (candidate k
-    of row b at ``k*B + b``); the user's bias slot is set to 1 so the
-    full-width dot folds the item bias in."""
-    B, W = u_rep.shape
-    u1 = with_unit_bias(u_rep)
-    s = (reps_flat.view(K, B, W) * u1[None, :, :]).sum(-1)
-    return s + u_rep[None, :, -1]
-
-
 def _pick_flat(reps_flat: torch.Tensor, j: torch.Tensor, B: int) -> torch.Tensor:
     """Row b's ``j[b]``-th slot-major candidate: ``reps_flat[j[b]*B + b]``
     (a plain gather; the JAX package's one-hot sum was a TPU measure)."""
@@ -371,12 +366,8 @@ def _warp_negative_search(state, item_feats, positives, uid, u_rep, pos_pred, ne
     violating positive consumes a trial without an update, so it is masked
     out of the candidates but keeps its slot in the draw count."""
     B = uid.shape[0]
-    K = neg_ids.shape[0]
-    nf_flat = batch_representation(
-        state.item_table, item_feats, neg_ids.reshape(-1), _scales(state, hp)[1],
-        _side(placement, "item"),
-    )  # [K*B, W] slot-major
-    neg_pred = _score_candidates(u_rep, nf_flat, K)
+    nf_flat, neg_pred = candidate_scores(state.item_table, item_feats, neg_ids, u_rep,
+                                         _scales(state, hp)[1], _side(placement, "item"))
     violates = neg_pred > pos_pred[None, :] - 1.0
     cand = violates & ~in_positives_slots(positives, uid, neg_ids)
     found = cand.any(dim=0)
@@ -398,12 +389,10 @@ def warp_step(state: ModelState, batch: Batch, user_feats, item_feats, positives
                                      _side(placement, "user"))
 
         B = batch.user_ids.shape[0]
-        K = draws.shape[0]
         neg_ids = draws.to(batch.item_ids.dtype)
         all_ids = torch.cat([batch.item_ids[None, :], neg_ids], dim=0)
-        reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1),
-                                         i_scale, _side(placement, "item"))
-        preds = _score_candidates(u_rep, reps_flat, K + 1)
+        reps_flat, preds = candidate_scores(state.item_table, item_feats, all_ids, u_rep,
+                                            i_scale, _side(placement, "item"))
         pos_pred, neg_pred = preds[0], preds[1:]
         p_rep = reps_flat[:B]
 
@@ -441,9 +430,8 @@ def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
         B = batch.user_ids.shape[0]
         all_ids = torch.cat([batch.item_ids[None, :], neg_id[None, :].to(batch.item_ids.dtype)],
                             dim=0)
-        reps_flat = batch_representation(state.item_table, item_feats, all_ids.reshape(-1),
-                                         i_scale, _side(placement, "item"))
-        preds = _score_candidates(u_rep, reps_flat, 2)
+        reps_flat, preds = candidate_scores(state.item_table, item_feats, all_ids, u_rep,
+                                            i_scale, _side(placement, "item"))
         p_rep, n_rep = reps_flat[:B], reps_flat[B:]
         loss = batch.weight * (1.0 - torch.sigmoid(preds[0] - preds[1]))  # template:1158
     return _apply_pairwise(state, hp, user_feats, item_feats, batch.user_ids, batch.item_ids,
@@ -483,9 +471,8 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
         ar = torch.arange(B, device=uid.device)
         cand = user_rows[ar[None, :], slots.long()]  # [n, B]
         cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # clamp the sentinel of empty rows
-        pc_flat = batch_representation(state.item_table, item_feats, cand.reshape(-1), i_scale,
-                                       _side(placement, "item"))
-        scores = _score_candidates(u_rep, pc_flat, n_draw)  # [n, B]
+        pc_flat, scores = candidate_scores(state.item_table, item_feats, cand, u_rep, i_scale,
+                                           _side(placement, "item"))  # [n*B, W], [n, B]
 
         no_pos = torch.clamp(lens, max=hp.n)  # template:976
         draw_valid = torch.arange(n_draw, device=uid.device)[:, None] < no_pos[None, :]

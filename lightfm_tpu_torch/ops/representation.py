@@ -5,9 +5,12 @@ Representations are ``[..., W]`` rows whose last element is the summed
 bias (the reference's layout, ``_lightfm_fast.pyx.template:305``); tables
 store that layout directly, so identity features are one row gather.
 
-Every table read goes through :func:`table_rows`, which under a mesh
-asks the table's placement for the whole rows, so everything after it
-computes as over a replicated table.
+Every table read under a placement goes through :func:`table_rows`,
+which asks the table's placement for the whole rows, so everything after
+it computes as over a replicated table.  Padded feature rows of a whole
+table are summed, and the generic step's candidates scored, by
+:func:`~lightfm_tpu_torch.ops.feature_sums.feature_sums` (on the card one
+hand-written kernel).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import contextlib
 
 import torch
 
-from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows
+from lightfm_tpu_torch.ops.feature_sums import feature_sums
+from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, PaddedRows
 
 
 @contextlib.contextmanager
@@ -72,15 +76,17 @@ def batch_representation(
     have weight 0 and contribute nothing.  ``scale`` is the lazy-
     regularisation accumulator; ``None`` means exactly 1.  ``placement``:
     the table's :class:`~lightfm_tpu_torch.parallel.mesh.TablePlacement`
-    (None: the whole table), read through :func:`table_rows`.
+    (None: the whole table), read through :func:`table_rows`.  Padded rows
+    of a whole table are summed by :func:`~lightfm_tpu_torch.ops.
+    feature_sums.feature_sums` (on the card one kernel, which writes no
+    ``[..., P, W]`` rows); a split table's rows are gathered and summed here.
     """
-    row_ids = row_ids.long()
     if features is None or isinstance(features, IdentityRows):
-        rows = table_rows(table, row_ids, placement)
+        rows = table_rows(table, row_ids.long(), placement)
         return rows * scale if scale is not None else rows
     if isinstance(features, ChunkedRows):
         rep = batch_representation(table, features.base, row_ids, scale, placement)
-        slots = features.over_slot[row_ids].long()
+        slots = features.over_slot[row_ids.long()].long()
         for idx_c, wts_c in zip(features.over_idx, features.over_wts):
             w = wts_c[slots]  # [..., C]; record M is all zeros (a no-op)
             if scale is not None:
@@ -88,12 +94,53 @@ def batch_representation(
             emb_c = table_rows(table, idx_c[slots].long(), placement)  # [..., C, W]
             rep = rep + _weighted_sum(w, emb_c)
         return rep
+    if placement is None:
+        reps, _ = feature_sums(table, features.idx, features.wts, _flat_ids(row_ids), scale)
+        return reps.view(*row_ids.shape, table.shape[1])
 
+    row_ids = row_ids.long()
     idx = features.idx[row_ids].long()  # [..., P]
     wts = features.wts[row_ids]  # [..., P]
     if scale is not None:
         wts = wts * scale
     return _weighted_sum(wts, table_rows(table, idx, placement))
+
+
+def candidate_scores(
+    table: torch.Tensor,
+    features,
+    ids: torch.Tensor,  # int [C, B]
+    user_rep: torch.Tensor,  # [B, W]
+    scale: torch.Tensor | None = None,
+    placement=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Representations ``[C*B, W]`` and scores ``[C, B]`` of slot-major
+    candidates ``ids`` (candidate c of batch row b at ``c*B + b``) against
+    ``user_rep``.  Padded rows of a whole table take both from one
+    :func:`~lightfm_tpu_torch.ops.feature_sums.feature_sums` call, so on the
+    card neither the ``[C*B, P, W]`` rows nor the ``[C, B, W]`` product
+    reaches device memory; other features score
+    :func:`batch_representation`'s rows with :func:`score_candidates`."""
+    if placement is None and isinstance(features, PaddedRows):
+        return feature_sums(table, features.idx, features.wts, _flat_ids(ids), scale,
+                            user_rep.contiguous())
+    reps = batch_representation(table, features, ids.reshape(-1), scale, placement)
+    return reps, score_candidates(user_rep, reps, ids.shape[0])
+
+
+def score_candidates(u_rep: torch.Tensor, reps_flat: torch.Tensor, K: int) -> torch.Tensor:
+    """[K, B] scores of slot-major candidate reps ``[K*B, W]`` (candidate k
+    of row b at ``k*B + b``); the user's bias slot is set to 1 so the
+    full-width dot folds the item bias in."""
+    B, W = u_rep.shape
+    u1 = with_unit_bias(u_rep)
+    s = (reps_flat.view(K, B, W) * u1[None, :, :]).sum(-1)
+    return s + u_rep[None, :, -1]
+
+
+def _flat_ids(ids: torch.Tensor) -> torch.Tensor:
+    """``ids`` as the contiguous int32 ``[N]`` the feature sums take."""
+    return ids.reshape(-1).to(torch.int32).contiguous()
 
 
 def _weighted_sum(w: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
