@@ -43,9 +43,13 @@ Each step marks its parts with the fast path's span names: ``step.score``
 ``step.grads`` (gradients and their per-feature touches), ``step.update``
 (the sparse optimizer pass of both tables) and, with L2 on, ``step.l2``
 (the scale bump; the generic epoch marks the rescale guard that follows
-it with a second ``step.l2``).  Counters, from shapes alone:
-``update_touches.item`` and ``update_touches.user`` (touch slots a step
-hands the optimizer, padding and examples that do not update included);
+it with a second ``step.l2``).  The k-OS step marks its pick inside
+``step.score`` as ``step.kos`` (the sampled positives' slots, their
+scores, their order and the k-th, before the negative search).
+Counters, from shapes alone: ``update_touches.item`` and
+``update_touches.user`` (touch slots a step hands the optimizer, padding
+and examples that do not update included); ``kos_draws`` (the k-OS
+step's sampled positive slots, ``n * B`` a step);
 on the card, with adagrad, the device counters
 ``update_kernel_touches.item`` and ``update_kernel_touches.user`` (the
 unmasked touches of the dense tier that the adagrad kernel sums; a
@@ -467,23 +471,25 @@ def warp_kos_step(state: ModelState, batch: Batch, user_feats, item_feats, posit
         u_rep = batch_representation(state.user_table, user_feats, uid, u_scale,
                                      _side(placement, "user"))
 
-        user_rows = positives.idx[uid_l]  # [B, P] sorted positives
-        ar = torch.arange(B, device=uid.device)
-        cand = user_rows[ar[None, :], slots.long()]  # [n, B]
-        cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # clamp the sentinel of empty rows
-        pc_flat, scores = candidate_scores(state.item_table, item_feats, cand, u_rep, i_scale,
-                                           _side(placement, "item"))  # [n*B, W], [n, B]
+        observability.count("kos_draws", n_draw * B)
+        with observability.span("step.kos"):
+            user_rows = positives.idx[uid_l]  # [B, P] sorted positives
+            ar = torch.arange(B, device=uid.device)
+            cand = user_rows[ar[None, :], slots.long()]  # [n, B]
+            cand = torch.clamp(cand, max=item_feats.n_rows - 1)  # the sentinel of empty rows
+            pc_flat, scores = candidate_scores(state.item_table, item_feats, cand, u_rep,
+                                               i_scale, _side(placement, "item"))  # [n*B, W]
 
-        no_pos = torch.clamp(lens, max=hp.n)  # template:976
-        draw_valid = torch.arange(n_draw, device=uid.device)[:, None] < no_pos[None, :]
-        keys = torch.where(draw_valid, -scores, torch.full_like(scores, float("inf")))
-        order = torch.argsort(keys, dim=0, stable=True)
-        pick = torch.clamp(torch.clamp(no_pos, max=hp.k) - 1, min=0)  # template:1002
-        sel = order[pick.long(), ar]
+            no_pos = torch.clamp(lens, max=hp.n)  # template:976
+            draw_valid = torch.arange(n_draw, device=uid.device)[:, None] < no_pos[None, :]
+            keys = torch.where(draw_valid, -scores, torch.full_like(scores, float("inf")))
+            order = torch.argsort(keys, dim=0, stable=True)
+            pick = torch.clamp(torch.clamp(no_pos, max=hp.k) - 1, min=0)  # template:1002
+            sel = order[pick.long(), ar]
 
-        pos_id = cand[sel, ar]
-        pos_pred = scores[sel, ar]
-        p_rep = _pick_flat(pc_flat, sel, B)
+            pos_id = cand[sel, ar]
+            pos_pred = scores[sel, ar]
+            p_rep = _pick_flat(pc_flat, sel, B)
 
         neg_id, n_rep, found, rank_weight = _warp_negative_search(
             state, item_feats, positives, uid, u_rep, pos_pred, neg_ids.to(uid.dtype), hp,
