@@ -45,11 +45,14 @@ Each step marks its parts with the fast path's span names: ``step.score``
 (the scale bump; the generic epoch marks the rescale guard that follows
 it with a second ``step.l2``).  The k-OS step marks its pick inside
 ``step.score`` as ``step.kos`` (the sampled positives' slots, their
-scores, their order and the k-th, before the negative search).
-Counters, from shapes alone: ``update_touches.item`` and
+scores, their order and the k-th, before the negative search), and the
+BPR step its negative's pick as ``step.bpr`` (the tries' items, the test
+against the user's positives and the first accepted try, before the
+scoring).  Counters, from shapes alone: ``update_touches.item`` and
 ``update_touches.user`` (touch slots a step hands the optimizer, padding
 and examples that do not update included); ``kos_draws`` (the k-OS
-step's sampled positive slots, ``n * B`` a step);
+step's sampled positive slots, ``n * B`` a step); ``bpr_draws`` (the BPR
+step's tries, ``B * T`` a step);
 on the card, the device counters
 ``update_kernel_touches.item`` and ``update_kernel_touches.user`` (the
 unmasked touches of the dense tier that the schedule's kernel, adagrad's
@@ -424,10 +427,12 @@ def bpr_step(state: ModelState, batch: Batch, user_feats, item_feats, positives,
     with observability.span("step.score"):
         upd = batch.valid & (batch.y > 0)  # template:1116
         T = draws.shape[1]
-        cand = train_items[draws.long()]  # [B, T]
-        ok = ~in_positives(positives, batch.user_ids, cand)
-        j = torch.where(ok.any(-1), _first_true(ok, -1), T - 1)
-        neg_id = torch.gather(cand, 1, j[:, None])[:, 0]
+        observability.count("bpr_draws", draws.shape[0] * T)
+        with observability.span("step.bpr"):
+            cand = train_items[draws.long()]  # [B, T]
+            ok = ~in_positives(positives, batch.user_ids, cand)
+            j = torch.where(ok.any(-1), _first_true(ok, -1), T - 1)
+            neg_id = torch.gather(cand, 1, j[:, None])[:, 0]
 
         u_scale, i_scale = _scales(state, hp)
         u_rep = batch_representation(state.user_table, user_feats, batch.user_ids, u_scale,

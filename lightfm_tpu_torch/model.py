@@ -490,9 +490,11 @@ class LightFM:
             if num_threads < 1:
                 raise ValueError("Number of threads must be 1 or larger.")
 
-            hp = apply_env_overrides(
-                self._hp(bpr_tries=self._bpr_tries_for(interactions) if self.loss == "bpr" else 8)
-            )
+            bpr_tries = 8
+            if self.loss == "bpr":
+                with observability.span("fit.bpr_tries"):
+                    bpr_tries = self._bpr_tries_for(interactions)
+            hp = apply_env_overrides(self._hp(bpr_tries=bpr_tries))
             batch_size = choose_batch_size(len(interactions.data), self.batch_size)
             data = build_train_data(
                 interactions,
