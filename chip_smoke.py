@@ -24,7 +24,9 @@ shapes, with the cell's compared numbers read over 24 seeds
 (``portbench/readings_generic.py``), the generic step's adadelta kernel
 (``touch_adadelta_update``, phase 4e) on one step's touches of the
 ``warp-kos-adadelta`` cell's model, whole and split, with one epoch of its
-fit through it, and trains with ``LightFM.fit`` at the
+fit through it, the generic step's scoring of identity rows
+(``identity_scores``, phase 4f) at the k-OS and BPR cells' step shapes and
+at edge shapes, and trains with ``LightFM.fit`` at the
 ``synth-5m-warp-d64`` shape of ``benchmarks/bench_training.py`` (200,000
 users x 100,000 items, 5M interactions, D=64, batch 131,072): 15 WARP
 epochs with a train-sample AUC guard, a same-seed determinism check, one
@@ -37,8 +39,9 @@ epoch and its own step spans.  Last, the whole-fit WARP kernel (K5)
 runs a 30-epoch fit at the size of the synthetic MovieLens 100k (943 users
 x 1,682 items, D=10) in one launch, against its plain version.  Phase 8
 drives the generic training path (PyTorch, with its optimizer passes
-through ``touch_adagrad_update`` and ``touch_adadelta_update`` and its
-feature sums through ``feature_sums``):
+through ``touch_adagrad_update`` and ``touch_adadelta_update``, its
+feature sums through ``feature_sums`` and its identity candidates' scores
+through ``identity_scores``):
 the quickstart's 30-epoch WARP fit at that size with ``fast_path="auto"``
 (quality against the port's own CPU fit), one epoch of every loss and
 schedule (and L2) on the card against the CPU with the same draws and
@@ -1680,6 +1683,15 @@ def adadelta_tolerance(torch, table, acc, mom, skeys, order, wg, alpha: float, s
     return t_tol, a_tol, m_tol, n, stat, 2 * (float(n.max()) + W + 12) * u * stat
 
 
+def under(rec, span, name: str) -> bool:
+    """Whether a recorded span runs inside a span called ``name``."""
+    while span.parent is not None:
+        span = rec.spans[span.parent]
+        if span.name == name:
+            return True
+    return False
+
+
 def kos_adadelta_model(seed: int):
     """The warp-kos-adadelta cell's model (``portbench/configs``)."""
     from lightfm_tpu_torch import LightFM
@@ -1712,6 +1724,7 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
     table's pass got at step KOS_STEP, with its state and arguments."""
     from lightfm_tpu_torch import losses, observability
     from lightfm_tpu_torch.ops import adadelta_update as ad
+    from lightfm_tpu_torch.ops import feature_sums as fsm
 
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
     step, update = losses.LOSS_STEPS["warp-kos"], losses.sparse_update
@@ -1732,6 +1745,7 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
 
     model = kos_adadelta_model(seed)
     ad.reset_launches()
+    fsm.reset_launches()
     losses.LOSS_STEPS["warp-kos"], losses.sparse_update = counted, recorded
     try:
         with observability.recording() as rec:
@@ -1749,7 +1763,19 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
           f"launches, {len(steps)} steps)")
     check(all(i > 0 and u > 0 for i, u in per_step),
           "update_kernel_touches.item and .user grow on every adadelta step")
+    scoring = rec.named("kernel.identity_scores")
+    rows = rec.counters.get("identity_score_rows", 0)
+    n_rows = (model.n + model.max_sampled) * TRAIN_BATCH  # positives and negatives a step
+    check(fsm.launches["identity_scores"] == len(scoring) == 2 * len(steps)
+          and fsm.launches["feature_sums"] == 0
+          and all(under(rec, s, "step.score") for s in scoring)
+          and rows == n_rows * len(steps),
+          f"identity_scores launched twice a step inside step.score on its (n + K) x "
+          f"{TRAIN_BATCH} candidates ({fsm.launches['identity_scores']} launches, {rows} rows, "
+          f"{len(steps)} steps)")
     out = {"steps": len(steps), "launches": ad.launches["touch_adadelta_update"],
+           "identity_scores_launches": fsm.launches["identity_scores"],
+           "identity_score_rows": rows,
            "kernel_touches_item": [i for i, _ in per_step],
            "kernel_touches_user": [u for _, u in per_step],
            "span_ms": float(np.mean([(s.end_ns - s.start_ns) / 1e6 for s in spans]))}
@@ -1957,6 +1983,172 @@ def auc_sample(model, train_csr, n_sample: int = 2048, seed: int = 0, item_featu
     sub.eliminate_zeros()
     return float(auc_score(model, sub, item_features=item_features,
                            check_intersections=False).mean())
+
+
+# The generic step's scoring of identity rows (phase 4f) at the identity
+# cells' step shapes: warp-kos-adadelta.fit-partial's (the n = 10 sampled
+# positives, or the K = 10 negatives, of each of a batch's 131,072 rows, W =
+# 32) and bpr-adagrad-l2.fit-partial's (the positive and the negative, W =
+# 40), on 100,000 identity item rows; then edge shapes at a small batch.
+ID_SHAPES = {"k-OS step": (10, 32), "BPR step": (2, 40)}
+ID_EDGES = {"W=1": (3, 1, False), "W=33": (11, 33, False), "W=200": (5, 200, False),
+            "W=32 misaligned": (7, 32, True), "C=40 W=72": (40, 72, False)}
+
+
+def ptxas_functions(name: str, marker: str) -> list:
+    """``-Xptxas -v``'s register and spill lines of the functions of
+    ``csrc/<name>.cu`` whose mangled names hold ``marker``."""
+    from lightfm_tpu_torch.ops import _build
+
+    out, current = [], ""
+    for ln in _build.build_log(name).splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            current = ln
+        elif ("registers" in ln or "spill" in ln) and marker in current:
+            out.append(ln.strip())
+    return out
+
+
+def check_identity_scores(torch, table, ids, users, scale, what: str) -> dict:
+    """The kernel against its plain version: reps bitwise, each score within
+    4 float32 ulps of its sum of |terms|, two launches bitwise equal, and
+    bitwise ``feature_sums`` over one-slot rows (the same dot order).
+    Returns the worst share of the score bound."""
+    from lightfm_tpu_torch.ops import feature_sums as fsm
+    from lightfm_tpu_torch.ops.representation import score_candidates
+
+    reps, scores = fsm.identity_scores(table, ids, users, scale)
+    again, again_s = fsm.identity_scores(table, ids, users, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(reps, again) and torch.equal(scores, again_s),
+          f"{what}: two launches are bitwise equal")
+    want, want_s = fsm.identity_scores_plain(table, ids, users, scale)
+    check(torch.equal(reps, want), f"{what}: reps bitwise the plain version's")
+    C = ids.numel() // users.shape[0]
+    mag = score_candidates(users.abs(), want.abs(), C)
+    share = float(((scores - want_s).abs() / (4 * 2.0**-23 * mag).clamp_min(1e-30)).max())
+    check(share <= 1.0, f"{what}: scores within 4 ulps of sum |terms| of the plain version "
+          f"(worst {share:.3g} of the bound)")
+    R = table.shape[0]
+    one = torch.arange(R, dtype=torch.int32, device=table.device)[:, None].contiguous()
+    padded = fsm.feature_sums(table, one, torch.ones(R, 1, device=table.device), ids, scale,
+                              users)
+    check(torch.equal(reps, padded[0]) and torch.equal(scores, padded[1]),
+          f"{what}: bitwise feature_sums over one-slot rows")
+    return {"score_share": share, "max_abs_err": float((scores - want_s).abs().max())}
+
+
+def identity_scores_checks(torch, seed: int, fit: dict) -> dict:
+    """Phase 4f: ``identity_scores``, the generic step's scoring of identity
+    rows, against its plain version (``check_identity_scores``) at the k-OS
+    and BPR cells' step shapes and at edge shapes (W of 1, 33 and 200, a
+    misaligned table, C = 40); ids outside the rows read NaN and leave the
+    other rows bitwise as they were.  Times: the kernel (CUDA events,
+    profiler, host enqueue), its plain version and the parent's gather,
+    scale multiply, broadcast product and sum (``library_ms``: the same
+    composition as the plain version, through ``batch_representation`` and
+    ``score_candidates``), beside the bytes bound (``identity_bound_ms``).
+    ``fit`` is phase 4e's k-OS epoch, whose every step launched the kernel
+    twice on its 2 x 10 x 131,072 candidates."""
+    from lightfm_tpu_torch import observability
+    from lightfm_tpu_torch.ops import feature_sums as fsm
+    from lightfm_tpu_torch.ops.representation import batch_representation, score_candidates
+    from lightfm_tpu_torch.sparse import identity_rows
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(seed + 9)
+    B, R = TRAIN_BATCH, TRAIN_ITEMS
+    log(f"phase 4f: the generic step's identity scoring kernel (identity_scores) vs plain, "
+        f"B={B}, {R} rows")
+    ptxas = ptxas_functions("feature_sums", "identity_scores")
+    for line in ptxas:
+        log("  ptxas identity_scores:", line)
+    check(len(ptxas) > 0 and all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+                                 for ln in ptxas if "spill" in ln),
+          f"ptxas: no identity_scores template spills ({len(ptxas)} lines)")
+    scale = torch.tensor(np.float32(np.exp(3e-4)), device=dev)
+    out = {}
+    for name, (C, W) in ID_SHAPES.items():
+        table = torch.from_numpy((0.1 * rng.randn(R, W)).astype(np.float32)).to(dev)
+        users = torch.from_numpy((0.1 * rng.randn(B, W)).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(rng.randint(0, R, C * B).astype(np.int32)).to(dev)
+        fsm.reset_launches()
+        with observability.recording() as rec:
+            main = check_identity_scores(torch, table, ids, users, scale, name)
+        check(fsm.launches["identity_scores"] == 2 == len(rec.named("kernel.identity_scores"))
+              and rec.counters["identity_score_rows"] == 2 * C * B,
+              f"{name}: two kernel calls counted 2 launches and {2 * C * B} rows "
+              f"({fsm.launches['identity_scores']}, {rec.counters.get('identity_score_rows')})")
+        if name == "k-OS step":
+            bad = ids.clone()
+            bad[:3] = torch.tensor([R, -1, 2**31 - 1], dtype=torch.int32, device=dev)
+            got, got_s = fsm.identity_scores(table, bad, users, scale)
+            want, want_s = fsm.identity_scores(table, ids, users, scale)
+            check(bool(torch.isnan(got[:3]).all() and torch.isnan(got_s.view(-1)[:3]).all())
+                  and torch.equal(got[3:], want[3:])
+                  and torch.equal(got_s.view(-1)[3:], want_s.view(-1)[3:]),
+                  "ids outside the rows read NaN and leave every other row and score bitwise "
+                  "as it was")
+            del got, got_s, want, want_s, bad
+
+        def kernel():
+            fsm.identity_scores(table, ids, users, scale)
+
+        def library():  # the parent's candidate_scores on identity rows
+            reps = batch_representation(table, identity_rows(R), ids, scale)
+            score_candidates(users, reps, C)
+
+        distinct = int(torch.unique(ids).numel())
+        bytes_ = 4.0 * C * B * (W + 2) + 4.0 * B * W + 4.0 * distinct * W
+        split = device_ms(torch, kernel)
+        rec = {
+            "B": B, "C": C, "W": W, "R": R, "distinct": distinct,
+            "ms": time_ms(torch, kernel, reps=20), "device_ms": sum(split.values()),
+            "device_split": split, "host_ms": host_ms(torch, kernel),
+            "plain_ms": time_ms(torch, lambda: fsm.identity_scores_plain(table, ids, users, scale),
+                                reps=5),
+            "library_ms": time_ms(torch, library, reps=5),
+            "bound_ms": 1e3 * bytes_ / HBM_BYTES_PER_S, "bound_bytes": bytes_, **main,
+        }
+        log(f"  {name}: " + json.dumps(rec))
+        out[name] = rec
+        del table, users, ids
+        torch.cuda.empty_cache()
+    edges = {}
+    for name, (C, W, misaligned) in ID_EDGES.items():
+        B_e, R_e = 4099, 3000
+        table = torch.from_numpy(rng.randn(R_e, W).astype(np.float32)).to(dev)
+        if misaligned:
+            flat = torch.empty(R_e * W + 1, device=dev)
+            flat[1:] = table.reshape(-1)
+            table = flat[1:].view(R_e, W)
+        users = torch.from_numpy(rng.randn(B_e, W).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(rng.randint(0, R_e, C * B_e).astype(np.int32)).to(dev)
+        edges[name] = check_identity_scores(torch, table, ids, users,
+                                            None if C % 2 else scale, name)
+    out["edges"] = edges
+    out["fit"] = {k: fit[k] for k in ("steps", "identity_scores_launches",
+                                      "identity_score_rows")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 4f took {out['phase_s']:.1f} s (fit in phase 4e)")
+    return out
+
+
+def identity_scores_record(rec: dict) -> dict:
+    """Phase 4f's kernel record: the k-OS step's times, the BPR step's."""
+    kos = rec["k-OS step"]
+    keys = ("ms", "device_ms", "host_ms", "plain_ms", "library_ms", "bound_ms")
+    return {
+        "name": "identity_scores", "route": "cuda",
+        "source": "lightfm_tpu_torch/csrc/feature_sums.cu",
+        "replaces": "lightfm_tpu/ops/representation.py:22 (XLA gather; no pallas_call)",
+        "launches": rec["fit"]["identity_scores_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in (kos, rec["BPR step"],
+                                                      *rec["edges"].values())),
+        "bound_by": "bytes", **{k: kos[k] for k in keys}, "score_share": kos["score_share"],
+        "bpr": {k: rec["BPR step"][k] for k in keys}, "phase_s": rec["phase_s"],
+    }
 
 
 def launch_counts():
@@ -2668,6 +2860,7 @@ def warp_fit_path(torch, seed: int) -> dict:
 # Generic path (phase 8): the quickstart headline, the card against the CPU
 # with the same draws, feature layouts, the 5M-interaction shape with
 # fast_path="off", and mid-fit checkpoints.
+IDENTITY_SCORE_CALLS = {"warp": 1, "bpr": 1, "warp-kos": 2}  # identity_scores a step
 QS_AUC_FLOOR = 0.90  # quickstart train AUC (phase 7's K5 fit of the same shape: 0.990)
 QS_CPU_BAND = 0.02  # card vs the port's own CPU fit at the same seed
 GENERIC_FULL_EPOCHS = 2
@@ -2708,13 +2901,14 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     (``touch_adagrad_update`` or ``touch_adadelta_update``) once a table and
     once a chunk of a ``ChunkedRows`` overflow tail, and the other schedule's
     never; a step over padded or chunked item features launches
-    ``feature_sums`` once, and no path launches any other hand-written
-    kernel."""
+    ``feature_sums`` once, a WARP or BPR step over identity items
+    ``identity_scores`` once (k-OS twice), and no path launches any other
+    hand-written kernel."""
     import tempfile
 
     from lightfm_tpu_torch import LightFM, interop, load_model, train
     from lightfm_tpu_torch.config import Hyperparams
-    from lightfm_tpu_torch.sparse import ChunkedRows, identity_rows
+    from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, identity_rows
     from lightfm_tpu_torch.state import table_width
 
     t_phase = time.perf_counter()
@@ -2722,18 +2916,24 @@ def generic_path(torch, seed: int, fast: dict) -> None:
     path_launches = {}
 
     def step_kernels(what: str, launches: dict, data, steps: int, adadelta: bool = False,
-                     sums_per_step: int = 0) -> None:
+                     sums_per_step: int = 0, loss: str = "warp") -> None:
         path_launches[what] = launches
         per_step = sum(1 + (f.n_chunks if isinstance(f, ChunkedRows) else 0)
                        for f in (data.item_feats, data.user_feats))
         kernel = "touch_adadelta_update" if adadelta else "touch_adagrad_update"
-        others = {k: v for k, v in launches.items() if k not in (kernel, "feature_sums")}
+        # Identity items' candidates: one call a step, the k-OS step's two.
+        ident = (IDENTITY_SCORE_CALLS.get(loss, 0)
+                 if isinstance(data.item_feats, IdentityRows) else 0)
+        scoring = ("feature_sums", "identity_scores")
+        others = {k: v for k, v in launches.items() if k not in (kernel, *scoring)}
         check(launches[kernel] == per_step * steps
               and launches["feature_sums"] == sums_per_step * steps
+              and launches["identity_scores"] == ident * steps
               and all(v == 0 for v in others.values()),
-              f"{what}: {kernel} launched {per_step} times a step and feature_sums "
-              f"{sums_per_step} over {steps} steps ({launches[kernel]}, "
-              f"{launches['feature_sums']}), no other hand-written kernel")
+              f"{what}: {kernel} launched {per_step} times a step, feature_sums "
+              f"{sums_per_step} and identity_scores {ident} over {steps} steps "
+              f"({launches[kernel]}, {launches['feature_sums']}, "
+              f"{launches['identity_scores']}), no other hand-written kernel")
 
     def fit_steps(model, epochs: int) -> int:
         return epochs * (model._staged_train_data.packed.shape[1] // model._staged_batch_size)
@@ -2814,7 +3014,7 @@ def generic_path(torch, seed: int, fast: dict) -> None:
         got, launches = counted_all(train.generic_epoch, interop.state_from_numpy(arrays, dev),
                                     d_dev, draws_dev, hp, B)
         step_kernels(f"card epoch {name}", launches, d_dev, d_dev.packed.shape[1] // B,
-                     hp.adadelta)
+                     hp.adadelta, loss=loss)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         again = train.generic_epoch(interop.state_from_numpy(arrays, dev), d_dev, draws_dev, hp, B)
@@ -2848,7 +3048,7 @@ def generic_path(torch, seed: int, fast: dict) -> None:
         # One padded (or chunked base) item read a step: the pair's items
         # (logistic), the candidates (WARP).
         step_kernels(f"fit {name} x2", launches, runs[1]._staged_train_data, fit_steps(runs[1], 2),
-                     kw.get("learning_schedule") == "adadelta", sums_per_step=1)
+                     kw.get("learning_schedule") == "adadelta", sums_per_step=1, loss=kw["loss"])
         check(runs[0]._staged_fast is False, f"{name}: the generic path")
         if name.startswith("warp"):
             f = runs[0]._staged_train_data.item_feats
@@ -4256,6 +4456,7 @@ def main() -> int:
     touch = touch_update_checks(torch, args.seed)
     fs_rec = feature_sums_checks(torch, args.seed, touch["cases"]["fit"])
     adadelta = touch_adadelta_checks(torch, args.seed)
+    id_rec = identity_scores_checks(torch, args.seed, adadelta["cases"]["fit"])
     trained = training_path(torch, args.seed)
     hybrid = hybrid_path(torch, args.seed)
     k5 = warp_fit_path(torch, args.seed)
@@ -4312,6 +4513,7 @@ def main() -> int:
     kernels.append(touch_record(touch))
     kernels.append(feature_sums_record(fs_rec))
     kernels.append(touch_adadelta_record(adadelta))
+    kernels.append(identity_scores_record(id_rec))
     k3 = hybrid["row"]
     check(hybrid["launches"]["sorted_grad_sums"] > 0, "sorted_grad_sums launched on the hybrid path")
     check(k5["launches"] > 0, "warp_fit_fused launched on the whole-fit path")

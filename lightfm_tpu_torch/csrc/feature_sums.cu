@@ -47,6 +47,30 @@
 // launches are bitwise equal.  (One warp a candidate with single floats took
 // 0.44 ms at the hybrid step on an H100 SXM at 700 W: its per-candidate
 // shuffles, ballot and reduction, paid by 32 lanes for 32 columns, bound it.)
+//
+// Identity rows (identity_scores_kernel): the same contract with one slot of
+// weight 1 whose feature is the id itself, for candidates of identity
+// features (pure matrix factorisation):
+//     reps[n, :] = fl(scale * table[ids[n], :])
+//     scores[n]  = sum_{c < W-1} users[b, c] * reps[n, c] + reps[n, W-1] + users[b, W-1]
+// with the dot's terms in the order feature_sums_kernel takes them (each
+// lane's columns, then a butterfly over the group), so the two kernels agree
+// bitwise on a table of one-slot rows.  An id outside [0, R) reads NaN.
+// Added because the port's PyTorch composition gathered every candidate's row
+// into a [C * B, W] tensor, scaled it in a second pass and wrote a [C, B, W]
+// product before summing it: at the warp-kos-adadelta step (C = 10 x 131,072
+// candidates twice a step, W = 32) ~1.1 ms a call.  Bound: bytes.  A call
+// must read each candidate's id, the users' rows once and the distinct table
+// rows once, and write reps (from which the step picks its positive and
+// violator rows) and the scores: ~208 MB at that shape, ~62 us at 3.35 TB/s.
+// Design: a group of G lanes owns one batch row and keeps its user row in
+// registers across the row's C candidates (W up to 96; a wider row is walked
+// 96 columns a pass, its user columns loaded again each pass); the group loads the next G
+// candidates' ids at once and broadcasts them with __shfl_sync, then loads
+// the table rows of U candidates before their multiplies and stores, so a
+// group keeps U row loads in flight (one dependent load a candidate would
+// make the kernel latency-bound).  No slot loop, no ballot, no atomics, no
+// shared memory: two launches are bitwise equal.
 
 #include <cuda_runtime.h>
 
@@ -231,6 +255,139 @@ cudaError_t launch_cols(float* reps, float* scores, const float* table, const in
   }
 }
 
+// A group lane's columns of one pass of row `p` (0 past the row's end or for
+// an inactive lane).
+template <int G, int V, int CPL>
+__device__ __forceinline__ void load_pass(float (&out)[CPL][V], const float* p, int c0, int gl,
+                                          int W, bool active) {
+#pragma unroll
+  for (int q = 0; q < CPL; ++q) {
+    const int col = c0 + (gl + G * q) * V;
+    if (active && col < W) {
+      load_vec<V>(out[q], p + col);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) out[q][e] = 0.f;
+    }
+  }
+}
+
+// G lanes a batch row, V columns a load, CPL loads a lane per pass, the rows
+// of U candidates loaded together (about 32 floats a lane in flight).
+template <int G, int V, int CPL, int U>
+__global__ void __launch_bounds__(kThreads)
+identity_scores_kernel(float* __restrict__ reps, float* __restrict__ scores,
+                       const float* __restrict__ table, const int* __restrict__ ids,
+                       const float* __restrict__ users, const float* __restrict__ scale,
+                       float scale_value, long long B, int C, int W, int R) {
+  constexpr int kPass = G * V * CPL;
+  static_assert(kPass % 32 == 0 && 32 % G == 0 && G % U == 0, "group layout");
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;
+  const long long b = ((long long)blockIdx.x * kThreads + threadIdx.x) / G;
+  if (__all_sync(kFull, b >= B)) return;
+  const bool active = b < B;
+  const float s = scale != nullptr ? __ldg(scale) : scale_value;
+  const float* u = users + (active ? b : 0) * W;
+  const float u_last = active ? __ldg(u + W - 1) : 0.f;
+  const float nan = __int_as_float(0x7fc00000);
+  const int last_gl = ((W - 1) / V) % G;  // the group lane holding column W - 1
+  const bool one_pass = W <= kPass;
+  float uv[CPL][V];
+  if (one_pass) load_pass<G, V, CPL>(uv, u, 0, gl, W, active);  // held across the C candidates
+  int lane_id = -1;
+  for (int c = 0; c < C; c += U) {
+    if (c % G == 0) {
+      lane_id = active && c + gl < C ? __ldg(ids + (long long)(c + gl) * B + b) : -1;
+    }
+    int id[U];
+    float part[U], last[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      id[k] = __shfl_sync(kFull, lane_id, (c + k) % G, G);
+      part[k] = 0.f;
+      last[k] = 0.f;
+    }
+    for (int c0 = 0; c0 < W; c0 += kPass) {
+      if (!one_pass) load_pass<G, V, CPL>(uv, u, c0, gl, W, active);
+      float v[U][CPL][V];
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int col = c0 + (gl + G * q) * V;
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[k][q][e] = 0.f;
+          if (active && c + k < C && col < W) {
+            if ((unsigned)id[k] < (unsigned)R) {
+              load_vec<V>(v[k][q], table + (size_t)id[k] * W + col);
+            } else {
+#pragma unroll
+              for (int e = 0; e < V; ++e) v[k][q][e] = nan;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < U; ++k) {
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int col = c0 + (gl + G * q) * V;
+          if (!active || c + k >= C || col >= W) continue;
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[k][q][e] *= s;
+          store_vec<V>(reps + ((long long)(c + k) * B + b) * W + col, v[k][q]);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            if (col + e < W - 1) {
+              part[k] = fmaf(uv[q][e], v[k][q][e], part[k]);
+            } else if (col + e == W - 1) {
+              last[k] = v[k][q][e];
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) {
+        part[k] += __shfl_xor_sync(kFull, part[k], off, G);
+      }
+      if (active && c + k < C && gl == last_gl) {
+        scores[(long long)(c + k) * B + b] = (part[k] + last[k]) + u_last;
+      }
+    }
+  }
+}
+
+template <int G, int V, int CPL>
+cudaError_t launch_identity(float* reps, float* scores, const float* table, const int* ids,
+                            const float* users, const float* scale, float scale_value,
+                            long long B, int C, int W, int R, cudaStream_t stream) {
+  constexpr int kU = 32 / (CPL * V) < 8 ? 32 / (CPL * V) : 8;
+  const unsigned blocks = (unsigned)((B * G + kThreads - 1) / kThreads);
+  identity_scores_kernel<G, V, CPL, kU><<<blocks, kThreads, 0, stream>>>(
+      reps, scores, table, ids, users, scale, scale_value, B, C, W, R);
+  return cudaGetLastError();
+}
+
+template <int G, int V>
+cudaError_t launch_identity_cols(float* reps, float* scores, const float* table,
+                                 const int* ids, const float* users, const float* scale,
+                                 float scale_value, long long B, int C, int W, int R,
+                                 cudaStream_t st) {
+  // At most 96 columns a pass: ptxas spilled the user row of a 128-column pass.
+  switch ((W + 31) / 32) {
+    case 1: return launch_identity<G, V, 1>(reps, scores, table, ids, users, scale,
+                                            scale_value, B, C, W, R, st);
+    case 2: return launch_identity<G, V, 2>(reps, scores, table, ids, users, scale,
+                                            scale_value, B, C, W, R, st);
+    default: return launch_identity<G, V, 3>(reps, scores, table, ids, users, scale,
+                                             scale_value, B, C, W, R, st);
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -263,6 +420,28 @@ int feature_sums_launch(float* reps, float* scores, const float* table, const in
   }
   return (int)launch_cols<32, 1>(reps, scores, table, idx, wts, ids, users, scale, scale_value,
                                  B, C, P, W, R, F, st);
+}
+
+// reps: f32 [C * B, W]; scores: f32 [C, B]; table: f32 [R, W]; ids: i32
+// [C * B]; users: f32 [B, W]; scale: a device f32, or null to use
+// scale_value.  All contiguous.  One launch on the caller's stream: 16-byte
+// loads where W % 4 == 0 and table, reps and users are 16-byte aligned, else
+// single floats; returns a cudaError_t code.
+int identity_scores_launch(float* reps, float* scores, const float* table, const int* ids,
+                           const float* users, const float* scale, float scale_value,
+                           long long B, int C, int W, int R, void* stream) {
+  if (B <= 0 || C <= 0 || W <= 0) return 0;
+  if (R < 0 || users == nullptr || scores == nullptr ||
+      B > (0x7fffffffLL * kThreads) / 32) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % 4 == 0 && aligned16(table) && aligned16(reps) && aligned16(users)) {
+    return (int)launch_identity_cols<8, 4>(reps, scores, table, ids, users, scale, scale_value,
+                                           B, C, W, R, st);
+  }
+  return (int)launch_identity_cols<32, 1>(reps, scores, table, ids, users, scale, scale_value,
+                                          B, C, W, R, st);
 }
 
 }  // extern "C"

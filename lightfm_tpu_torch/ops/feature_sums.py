@@ -20,10 +20,19 @@ kernel reads itself (no host sync).  The kernel sums in slot order with
 fp32 fused multiply-adds; the plain version is the PyTorch composition it
 replaced, so kernel and plain agree to rounding.
 
-The wrapper takes its plain version only for tensors on the CPU.  A CUDA
+``identity_scores(table, ids, users, scale=None)`` is the same contract for
+identity features (one slot of weight 1 whose feature is the id itself):
+``(reps [N, W], scores [C, B])`` with ``reps[n] = fl(scale * table[ids[n]])``
+(the row itself when ``scale`` is None).  Its kernel, in the same source, keeps
+each user's row in registers across the row's candidates and takes the dot's
+terms in ``feature_sums``' order; its plain version is the composition it
+replaced (``representation.batch_representation``, then
+``score_candidates``).
+
+Each wrapper takes its plain version only for tensors on the CPU.  A CUDA
 tensor launches the kernel or raises; there is no fallback.  ``launches``
 counts kernel launches (never plain-version calls), and each launch adds its
-rows ``N`` to the counter ``feature_sum_rows``.
+rows ``N`` to the counter ``feature_sum_rows`` or ``identity_score_rows``.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import torch
 from lightfm_tpu_torch import observability
 from lightfm_tpu_torch.ops import _build
 
-launches = {"feature_sums": 0}
+launches = {"feature_sums": 0, "identity_scores": 0}
 _INT32_MAX = 2**31 - 1
 
 
@@ -52,6 +61,9 @@ def _lib() -> ctypes.CDLL:
         lib.feature_sums_launch.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float,
                                             ctypes.c_longlong, i, i, i, i, i, p]
         lib.feature_sums_launch.restype = i
+        lib.identity_scores_launch.argtypes = [p, p, p, p, p, p, ctypes.c_float,
+                                               ctypes.c_longlong, i, i, i, p]
+        lib.identity_scores_launch.restype = i
         lib.feature_sums_error_string.argtypes = [i]
         lib.feature_sums_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -63,6 +75,18 @@ def _check_args(table, idx, wts, ids, scale, users) -> None:
              ("wts", wts, torch.float32, 2), ("ids", ids, torch.int32, 1)]
     if users is not None:
         named.append(("users", users, torch.float32, 2))
+    _check_tensors(table, named, scale)
+    if idx.shape != wts.shape:
+        raise ValueError(f"idx {tuple(idx.shape)} and wts {tuple(wts.shape)} differ in shape")
+    if max(*table.shape, *idx.shape) > _INT32_MAX:
+        raise ValueError("table and feature rows must have fewer than 2**31 rows and columns")
+    if users is not None:
+        _check_users(table, ids, users)
+
+
+def _check_tensors(table, named, scale) -> None:
+    """Type, rank, device and contiguity of each ``(name, x, dtype, ndim)``
+    and of a tensor ``scale``."""
     if isinstance(scale, torch.Tensor):
         named.append(("scale", scale, torch.float32, 0))
     elif scale is not None and not isinstance(scale, numbers.Real):
@@ -80,16 +104,14 @@ def _check_args(table, idx, wts, ids, scale, users) -> None:
             raise ValueError(f"{name} must be contiguous")
     if table.device.type not in ("cpu", "cuda"):
         raise ValueError(f"the feature sums run on CUDA or CPU tensors, not {table.device}")
-    if idx.shape != wts.shape:
-        raise ValueError(f"idx {tuple(idx.shape)} and wts {tuple(wts.shape)} differ in shape")
-    if max(*table.shape, *idx.shape) > _INT32_MAX:
-        raise ValueError("table and feature rows must have fewer than 2**31 rows and columns")
-    if users is not None:
-        if users.shape[1] != table.shape[1]:
-            raise ValueError(f"users are {users.shape[1]} wide, the table {table.shape[1]}")
-        B, N = users.shape[0], ids.shape[0]
-        if (N % B if B else N) or (B and N // B > _INT32_MAX):
-            raise ValueError(f"{N} candidates are not a whole number of rows of {B} users")
+
+
+def _check_users(table, ids, users) -> None:
+    if users.shape[1] != table.shape[1]:
+        raise ValueError(f"users are {users.shape[1]} wide, the table {table.shape[1]}")
+    B, N = users.shape[0], ids.shape[0]
+    if (N % B if B else N) or (B and N // B > _INT32_MAX):
+        raise ValueError(f"{N} candidates are not a whole number of rows of {B} users")
 
 
 def feature_sums_plain(table, idx, wts, ids, scale=None, users=None):
@@ -144,4 +166,53 @@ def feature_sums(table: torch.Tensor, idx: torch.Tensor, wts: torch.Tensor, ids:
         raise RuntimeError(f"feature_sums kernel launch failed: {msg} (cudaError {code})")
     launches["feature_sums"] += 1
     observability.count("feature_sum_rows", N)
+    return reps, scores
+
+
+def _check_identity_args(table, ids, users, scale) -> None:
+    _check_tensors(table, [("table", table, torch.float32, 2), ("ids", ids, torch.int32, 1),
+                           ("users", users, torch.float32, 2)], scale)
+    if max(table.shape) > _INT32_MAX:
+        raise ValueError("the table must have fewer than 2**31 rows and columns")
+    _check_users(table, ids, users)
+
+
+def identity_scores_plain(table, ids, users, scale=None):
+    """Plain version: the composition the kernel replaced, the identity
+    read of ``representation.batch_representation`` (a row gather, then the
+    scale) and ``representation.score_candidates``."""
+    # Imported here: representation's candidate scoring calls this module.
+    from lightfm_tpu_torch.ops.representation import batch_representation, score_candidates
+
+    reps = batch_representation(table, None, ids, scale)
+    B = users.shape[0]
+    return reps, score_candidates(users, reps, ids.shape[0] // B if B else 0)
+
+
+@observability.spanned("kernel.identity_scores")
+def identity_scores(table: torch.Tensor, ids: torch.Tensor, users: torch.Tensor, scale=None):
+    """``(reps [N, W], scores [C, B])`` of the table rows ``ids`` (int32
+    [N], slot-major: candidate ``n`` of batch row ``n % B``) scored against
+    ``users`` [B, W] (see the module's note).  An id outside the table's
+    rows reads NaN on the card."""
+    _check_identity_args(table, ids, users, scale)
+    if table.device.type == "cpu":
+        return identity_scores_plain(table, ids, users, scale)
+    (N,), (R, W), B = ids.shape, table.shape, users.shape[0]
+    reps = torch.empty((N, W), dtype=torch.float32, device=table.device)
+    scores = torch.empty((N // B if B else 0, B), dtype=torch.float32, device=table.device)
+    if N == 0 or W == 0:
+        return reps, scores
+    tensor_scale = isinstance(scale, torch.Tensor)
+    code = _lib().identity_scores_launch(
+        reps.data_ptr(), scores.data_ptr(), table.data_ptr(), ids.data_ptr(), users.data_ptr(),
+        scale.data_ptr() if tensor_scale else None,
+        1.0 if scale is None or tensor_scale else float(scale),
+        B, N // B, W, R, ctypes.c_void_p(torch.cuda.current_stream(table.device).cuda_stream),
+    )
+    if code:
+        msg = _lib().feature_sums_error_string(code).decode()
+        raise RuntimeError(f"identity_scores kernel launch failed: {msg} (cudaError {code})")
+    launches["identity_scores"] += 1
+    observability.count("identity_score_rows", N)
     return reps, scores

@@ -10,7 +10,8 @@ which asks the table's placement for the whole rows, so everything after
 it computes as over a replicated table.  Padded feature rows of a whole
 table are summed, and the generic step's candidates scored, by
 :func:`~lightfm_tpu_torch.ops.feature_sums.feature_sums` (on the card one
-hand-written kernel).
+hand-written kernel); identity candidates of a whole table are scored by
+:func:`~lightfm_tpu_torch.ops.feature_sums.identity_scores` (another).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import contextlib
 
 import torch
 
-from lightfm_tpu_torch.ops.feature_sums import feature_sums
+from lightfm_tpu_torch.ops.feature_sums import feature_sums, identity_scores
 from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, PaddedRows
 
 
@@ -117,13 +118,17 @@ def candidate_scores(
     """Representations ``[C*B, W]`` and scores ``[C, B]`` of slot-major
     candidates ``ids`` (candidate c of batch row b at ``c*B + b``) against
     ``user_rep``.  Padded rows of a whole table take both from one
-    :func:`~lightfm_tpu_torch.ops.feature_sums.feature_sums` call, so on the
-    card neither the ``[C*B, P, W]`` rows nor the ``[C, B, W]`` product
-    reaches device memory; other features score
+    :func:`~lightfm_tpu_torch.ops.feature_sums.feature_sums` call, identity
+    rows (or ``None``) of a whole table from one
+    :func:`~lightfm_tpu_torch.ops.feature_sums.identity_scores` call, so on
+    the card neither the gathered rows nor the ``[C, B, W]`` product reaches
+    device memory twice; chunked features and split tables score
     :func:`batch_representation`'s rows with :func:`score_candidates`."""
     if placement is None and isinstance(features, PaddedRows):
         return feature_sums(table, features.idx, features.wts, _flat_ids(ids), scale,
                             user_rep.contiguous())
+    if placement is None and (features is None or isinstance(features, IdentityRows)):
+        return identity_scores(table, _flat_ids(ids), user_rep.contiguous(), scale)
     reps = batch_representation(table, features, ids.reshape(-1), scale, placement)
     return reps, score_candidates(user_rep, reps, ids.shape[0])
 

@@ -253,7 +253,7 @@ def test_feature_sums_counts_no_launch_and_no_rows_on_the_cpu():
     fs.reset_launches()
     with observability.recording() as rec:
         fs.feature_sums(**_fs_args())
-    assert fs.launches == {"feature_sums": 0}
+    assert fs.launches == {"feature_sums": 0, "identity_scores": 0}
     assert [s.name for s in rec.spans] == ["kernel.feature_sums"]
     assert "feature_sum_rows" not in rec.counters
 
