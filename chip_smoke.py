@@ -1238,7 +1238,7 @@ def touch_update_checks(torch, seed: int) -> dict:
     bound on the live touches (``update_bound_ms``).  Then one epoch of a
     generic hybrid fit (tags, ``item_alpha``) under a recording: every step
     launches the kernel on both tables inside its ``kernel.touch_adagrad``
-    span and counts live touches on both ``update_kernel_touches.*``."""
+    span and keeps no count of its touches on the device."""
     from lightfm_tpu_torch.ops import _build
     from lightfm_tpu_torch.ops import adagrad_update as au
     from lightfm_tpu_torch.ops.updates import touch_order
@@ -1359,48 +1359,41 @@ def touch_update_checks(torch, seed: int) -> dict:
     return {"worst": worst, "cases": out}
 
 
+def device_update_counters(observability) -> list:
+    """The device counters of a generic step's touches (none since they
+    were removed: a reduction and an add a table every step, which nothing
+    read)."""
+    return [name for name, _ in observability._device_counts
+            if name.startswith("update_kernel_touches")]
+
+
 def touch_update_fit(torch, seed: int) -> dict:
     """Phase 4c's fit: one epoch of ``LightFM(loss="warp", item_alpha=1e-6,
     no_components=30)`` on phase 5's interactions with tag features alone
     (the generic path), every step read from a recording: the kernel's
-    spans, and the device counters read after each step (a wrapper around
-    the WARP step, which synchronises)."""
-    from lightfm_tpu_torch import LightFM, losses, observability
+    spans and launches, and the device counters after it."""
+    from lightfm_tpu_torch import LightFM, observability
     from lightfm_tpu_torch.ops import adagrad_update as au
     from lightfm_tpu_torch.ops import feature_sums as fsm
 
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
     tags = tag_features(TRAIN_ITEMS, seed=seed + 3)[:, TRAIN_ITEMS:].tocsr()
-    step = losses.LOSS_STEPS["warp"]
-    names = ("update_kernel_touches.item", "update_kernel_touches.user")
-    per_step = []
-
-    def counted(*args, **kwargs):
-        before = [observability.device_counter(n) for n in names]
-        state = step(*args, **kwargs)
-        per_step.append([observability.device_counter(n) - b for n, b in zip(names, before)])
-        return state
-
     model = LightFM(loss="warp", item_alpha=1e-6, no_components=30, batch_size=TRAIN_BATCH,
                     random_state=seed, device=DEVICE)
     au.reset_launches()
     fsm.reset_launches()
-    losses.LOSS_STEPS["warp"] = counted
-    try:
-        with observability.recording() as rec:
-            model.fit(coo, item_features=tags, epochs=1)
-    finally:
-        losses.LOSS_STEPS["warp"] = step
+    with observability.recording() as rec:
+        model.fit(coo, item_features=tags, epochs=1)
     steps = rec.named("step")
     spans = rec.named("kernel.touch_adagrad")
     check(model._staged_fast is False, "the hybrid fit with item_alpha took the generic path")
-    check(len(steps) == len(per_step) > 0 and len(spans) == 2 * len(steps)
+    check(len(steps) > 0 and len(spans) == 2 * len(steps)
           and au.launches["touch_adagrad_update"] == 2 * len(steps),
           f"touch_adagrad_update launched twice a step inside kernel.touch_adagrad spans "
           f"({len(spans)} spans, {au.launches['touch_adagrad_update']} launches, "
           f"{len(steps)} steps)")
-    check(all(i > 0 and u > 0 for i, u in per_step),
-          "update_kernel_touches.item and .user grow on every step")
+    check(not device_update_counters(observability),
+          "the generic step keeps no count of its touches on the device")
     scoring = rec.named("kernel.feature_sums")
     rows = rec.counters.get("feature_sum_rows", 0)
     check(fsm.launches["feature_sums"] == len(scoring) == len(steps)
@@ -1411,8 +1404,8 @@ def touch_update_fit(torch, seed: int) -> dict:
           f"{len(steps)} steps)")
     out = {"steps": len(steps), "launches": au.launches["touch_adagrad_update"],
            "feature_sums_launches": fsm.launches["feature_sums"], "feature_sum_rows": rows,
-           "kernel_touches_item": [i for i, _ in per_step],
-           "kernel_touches_user": [u for _, u in per_step],
+           "update_touches_item": rec.counters.get("update_touches.item", 0),
+           "update_touches_user": rec.counters.get("update_touches.user", 0),
            "span_ms": float(np.mean([(s.end_ns - s.start_ns) / 1e6 for s in spans]))}
     log("  hybrid fit, one epoch: " + json.dumps(out))
     return out
@@ -1719,8 +1712,7 @@ def fresh_ms(torch, reset, fn, reps: int = 10) -> float:
 def touch_adadelta_fit(torch, seed: int) -> dict:
     """Phase 4e's fit: one epoch of the warp-kos-adadelta model on phase 5's
     interactions, every step read from a recording: the kernel's spans and
-    launches, and the device counters read after each step (a wrapper
-    around the k-OS step, which synchronises).  Keeps the touches each
+    launches, and the device counters after it.  Keeps the touches each
     table's pass got at step KOS_STEP, with its state and arguments."""
     from lightfm_tpu_torch import losses, observability
     from lightfm_tpu_torch.ops import adadelta_update as ad
@@ -1728,14 +1720,11 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
 
     coo = clustered_interactions(TRAIN_USERS, TRAIN_ITEMS, TRAIN_NNZ, seed)
     step, update = losses.LOSS_STEPS["warp-kos"], losses.sparse_update
-    names = ("update_kernel_touches.item", "update_kernel_touches.user")
     per_step, touches = [], {}
 
     def counted(*args, **kwargs):
-        before = [observability.device_counter(n) for n in names]
-        state = step(*args, **kwargs)
-        per_step.append([observability.device_counter(n) - b for n, b in zip(names, before)])
-        return state
+        per_step.append(None)
+        return step(*args, **kwargs)
 
     def recorded(*args, **kwargs):
         if len(per_step) == KOS_STEP and len(touches) < 2:
@@ -1761,8 +1750,8 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
           f"touch_adadelta_update launched twice a step inside kernel.touch_adadelta spans "
           f"under step.update ({len(spans)} spans, {ad.launches['touch_adadelta_update']} "
           f"launches, {len(steps)} steps)")
-    check(all(i > 0 and u > 0 for i, u in per_step),
-          "update_kernel_touches.item and .user grow on every adadelta step")
+    check(not device_update_counters(observability),
+          "the generic adadelta step keeps no count of its touches on the device")
     scoring = rec.named("kernel.identity_scores")
     rows = rec.counters.get("identity_score_rows", 0)
     n_rows = (model.n + model.max_sampled) * TRAIN_BATCH  # positives and negatives a step
@@ -1776,8 +1765,8 @@ def touch_adadelta_fit(torch, seed: int) -> dict:
     out = {"steps": len(steps), "launches": ad.launches["touch_adadelta_update"],
            "identity_scores_launches": fsm.launches["identity_scores"],
            "identity_score_rows": rows,
-           "kernel_touches_item": [i for i, _ in per_step],
-           "kernel_touches_user": [u for _, u in per_step],
+           "update_touches_item": rec.counters.get("update_touches.item", 0),
+           "update_touches_user": rec.counters.get("update_touches.user", 0),
            "span_ms": float(np.mean([(s.end_ns - s.start_ns) / 1e6 for s in spans]))}
     log("  k-OS adadelta fit, one epoch: " + json.dumps(out))
     return {"record": out, "touches": touches}

@@ -52,12 +52,7 @@ scoring).  Counters, from shapes alone: ``update_touches.item`` and
 ``update_touches.user`` (touch slots a step hands the optimizer, padding
 and examples that do not update included); ``kos_draws`` (the k-OS
 step's sampled positive slots, ``n * B`` a step); ``bpr_draws`` (the BPR
-step's tries, ``B * T`` a step);
-on the card, the device counters
-``update_kernel_touches.item`` and ``update_kernel_touches.user`` (the
-unmasked touches of the dense tier that the schedule's kernel, adagrad's
-or adadelta's, sums; a ``ChunkedRows`` overflow tail, summed by the same
-kernel chunk by chunk, is not counted).
+step's tries, ``B * T`` a step).
 
 The fast path's steps live in :mod:`lightfm_tpu_torch.fast_warp`.
 """
@@ -76,7 +71,7 @@ from lightfm_tpu_torch.ops.representation import (
     score_pairs,
     with_unit_bias,
 )
-from lightfm_tpu_torch.ops.updates import kernel_sums, sparse_update
+from lightfm_tpu_torch.ops.updates import sparse_update
 from lightfm_tpu_torch.sparse import ChunkedRows, IdentityRows, in_positives, in_positives_slots
 from lightfm_tpu_torch.state import ModelState
 
@@ -212,12 +207,9 @@ def _apply_touches(state, side, feats, touches, over, alpha, kw, placement):
     observability.count(f"update_touches.{side}", idx.shape[0] + sum(
         s[0].shape[0] * feats.over_idx.shape[2] * feats.n_chunks for s in over))
     idx, mask, g, own_kw = _own(placement, idx, mask, g)
-    table = getattr(state, f"{side}_table")
-    if kernel_sums(table, kw["adadelta"]):
-        observability.count_on_device(f"update_kernel_touches.{side}", mask.sum())
     table, acc, mom, lr, cnt = sparse_update(
-        table, getattr(state, f"{side}_acc"), getattr(state, f"{side}_mom"), idx, w, g, mask,
-        alpha=alpha, **kw, **own_kw,
+        getattr(state, f"{side}_table"), getattr(state, f"{side}_acc"),
+        getattr(state, f"{side}_mom"), idx, w, g, mask, alpha=alpha, **kw, **own_kw,
     )
     if over:
         table, acc, mom, lr_o, cnt_o = _overflow_chunks(

@@ -1151,97 +1151,106 @@ class LightFM:
         self._check_initialized()
         from lightfm_tpu_torch import retrieval
 
-        if self.mesh is not None:
-            from lightfm_tpu_torch.parallel.mesh import check_mesh
+        with observability.span("recommend.inputs"):
+            if self.mesh is not None:
+                from lightfm_tpu_torch.parallel.mesh import check_mesh
 
-            check_mesh(self.mesh)
-        user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
-        if n_items is None:
-            if item_features is not None:
-                n_items = item_features.shape[0]
-            elif train_interactions is not None:
-                n_items = train_interactions.shape[1]
-            elif getattr(self, "n_items_", None) is not None:
-                n_items = self.n_items_
-            else:
-                n_items = self._table_shape("item")[0]
-        if item_features is None and getattr(self, "_item_features_used", False):
-            raise ValueError(
-                "This model was fitted with item_features; recommend() needs "
-                "the same item_features to build catalog representations."
-            )
-        if user_features is None and getattr(self, "_user_features_used", False):
-            raise ValueError(
-                "This model was fitted with user_features; recommend() needs "
-                "the same user_features to build user representations."
-            )
-        n_users = int(user_ids.max()) + 1 if len(user_ids) else 1
+                check_mesh(self.mesh)
+            user_ids = np.atleast_1d(np.asarray(user_ids, dtype=np.int32))
+            if n_items is None:
+                if item_features is not None:
+                    n_items = item_features.shape[0]
+                elif train_interactions is not None:
+                    n_items = train_interactions.shape[1]
+                elif getattr(self, "n_items_", None) is not None:
+                    n_items = self.n_items_
+                else:
+                    n_items = self._table_shape("item")[0]
+            if item_features is None and getattr(self, "_item_features_used", False):
+                raise ValueError(
+                    "This model was fitted with item_features; recommend() needs "
+                    "the same item_features to build catalog representations."
+                )
+            if user_features is None and getattr(self, "_user_features_used", False):
+                raise ValueError(
+                    "This model was fitted with user_features; recommend() needs "
+                    "the same user_features to build user representations."
+                )
+            n_users = int(user_ids.max()) + 1 if len(user_ids) else 1
 
-        (user_features, item_features) = self._construct_feature_matrices(
-            n_users, n_items, user_features, item_features
-        )
-        user_feats = self._pad_features_cached(user_features)
-        item_feats = self._pad_features_cached(item_features)
+            (user_features, item_features) = self._construct_feature_matrices(
+                n_users, n_items, user_features, item_features
+            )
+            user_feats = self._pad_features_cached(user_features)
+            item_feats = self._pad_features_cached(item_features)
+            uid = torch.from_numpy(user_ids).to(self._device)
+            k = min(int(k), int(n_items))  # never return catalog padding
+            user_placement = self._user_placement()
 
         exclude_idx = None
         if train_interactions is not None:
-            tr = train_interactions.tocsr()
-            sel_lengths = np.diff(tr.indptr)[user_ids]
-            P = max(1, int(sel_lengths.max()) if len(sel_lengths) else 1)
-            # Sentinel > any padded catalog width, so masking skips it.
-            exclude = np.full((len(user_ids), P), np.iinfo(np.int32).max, np.int32)
-            nnz_sel = int(sel_lengths.sum())
-            if nnz_sel:
-                row_of = np.repeat(np.arange(len(user_ids)), sel_lengths)
-                pos = np.arange(nnz_sel) - np.repeat(
-                    np.cumsum(sel_lengths) - sel_lengths, sel_lengths
-                )
-                flat = np.repeat(tr.indptr[user_ids], sel_lengths) + pos
-                exclude[row_of, pos] = tr.indices[flat]
-            exclude_idx = torch.from_numpy(exclude).to(self._device)
+            with observability.span("recommend.exclude"):
+                tr = train_interactions.tocsr()
+                sel_lengths = np.diff(tr.indptr)[user_ids]
+                P = max(1, int(sel_lengths.max()) if len(sel_lengths) else 1)
+                # Sentinel > any padded catalog width, so masking skips it.
+                exclude = np.full((len(user_ids), P), np.iinfo(np.int32).max, np.int32)
+                nnz_sel = int(sel_lengths.sum())
+                if nnz_sel:
+                    row_of = np.repeat(np.arange(len(user_ids)), sel_lengths)
+                    pos = np.arange(nnz_sel) - np.repeat(
+                        np.cumsum(sel_lengths) - sel_lengths, sel_lengths
+                    )
+                    flat = np.repeat(tr.indptr[user_ids], sel_lengths) + pos
+                    exclude[row_of, pos] = tr.indices[flat]
+                exclude_idx = torch.from_numpy(exclude).to(self._device)
 
-        uid = torch.from_numpy(user_ids).to(self._device)
-        k = min(int(k), int(n_items))  # never return catalog padding
-        user_placement = self._user_placement()
-        # Catalog structures are cached for the identity-features case
-        # (invalidated whenever model state changes).
-        cacheable = item_features is None or self._is_identity(item_features)
-        if mode == "compressed":
-            index = self._state_cache.get(("index", n_items)) if cacheable else None
-            if index is None:
-                index = retrieval.build_compressed_index(self._serving_item_table(), item_feats,
-                                                         n_items)
-                if cacheable:
-                    self._state_cache[("index", n_items)] = index
-            scores, ids = retrieval.top_k_compressed(
-                self._state, user_feats, index, uid, k,
-                exclude_idx=exclude_idx, rerank_mult=rerank_mult, user_placement=user_placement,
-            )
-        elif mode in ("auto", "exact", "approx") and self.mesh is not None:
-            scores, ids = retrieval.top_k_sharded(
-                self._state, user_feats, self._catalog_block(item_feats, n_items, cacheable),
-                uid, k, self.mesh,
-                exclude_idx=exclude_idx, user_placement=user_placement,
-            )
-        elif mode in ("auto", "exact", "approx"):
-            catalog = self._state_cache.get(("catalog", n_items)) if cacheable else None
-            if catalog is None:
-                # Streaming-size catalogs are padded to the tile multiple.
-                multiple = (
-                    131_072 if n_items > retrieval.STREAMING_CATALOG_LIMIT else 128
+        with observability.span("recommend.catalog"):
+            # Catalog structures are cached for the identity-features case
+            # (invalidated whenever model state changes).
+            cacheable = item_features is None or self._is_identity(item_features)
+            if mode == "compressed":
+                index = self._state_cache.get(("index", n_items)) if cacheable else None
+                if index is None:
+                    index = retrieval.build_compressed_index(self._serving_item_table(),
+                                                             item_feats, n_items)
+                    if cacheable:
+                        self._state_cache[("index", n_items)] = index
+            elif mode not in ("auto", "exact", "approx"):
+                raise ValueError(f"Unknown retrieval mode: {mode!r}")
+            elif self.mesh is not None:
+                block = self._catalog_block(item_feats, n_items, cacheable)
+            else:
+                catalog = self._state_cache.get(("catalog", n_items)) if cacheable else None
+                if catalog is None:
+                    # Streaming-size catalogs are padded to the tile multiple.
+                    multiple = (
+                        131_072 if n_items > retrieval.STREAMING_CATALOG_LIMIT else 128
+                    )
+                    catalog = retrieval.build_catalog(
+                        self._serving_item_table(), item_feats, n_items, multiple=multiple
+                    )
+                    if cacheable:
+                        self._state_cache[("catalog", n_items)] = catalog
+        with observability.span("recommend.topk"):
+            if mode == "compressed":
+                scores, ids = retrieval.top_k_compressed(
+                    self._state, user_feats, index, uid, k,
+                    exclude_idx=exclude_idx, rerank_mult=rerank_mult,
+                    user_placement=user_placement,
                 )
-                catalog = retrieval.build_catalog(
-                    self._serving_item_table(), item_feats, n_items, multiple=multiple
+            elif self.mesh is not None:
+                scores, ids = retrieval.top_k_sharded(
+                    self._state, user_feats, block, uid, k, self.mesh,
+                    exclude_idx=exclude_idx, user_placement=user_placement,
                 )
-                if cacheable:
-                    self._state_cache[("catalog", n_items)] = catalog
-            scores, ids = retrieval.top_k(
-                self._state, user_feats, item_feats, uid, k, n_items,
-                exclude_idx=exclude_idx, catalog=catalog, user_placement=user_placement,
-            )
-        else:
-            raise ValueError(f"Unknown retrieval mode: {mode!r}")
-        return scores.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+            else:
+                scores, ids = retrieval.top_k(
+                    self._state, user_feats, item_feats, uid, k, n_items,
+                    exclude_idx=exclude_idx, catalog=catalog, user_placement=user_placement,
+                )
+        with observability.span("recommend.result"):
+            return scores.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
 
     # ------------------------------------------------------------------
     # Representations / params (lightfm.py:991-1107)

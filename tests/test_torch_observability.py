@@ -3,7 +3,8 @@ a small CPU fit as TensorBoard's ``*.pt.trace.json``, and ``device=None``
 means CUDA, so it raises on a machine without a GPU.  Spans cost one test
 and read no clock while nothing observes them; under ``recording()`` a fit
 and a ``predict_rank`` keep their layers' spans, nested, with their call's
-id, on the profiler's clock; the counters count what they name."""
+id, on the profiler's clock, and a ``recommend`` its parts; the counters
+count what they name."""
 
 import json
 import zlib
@@ -105,10 +106,9 @@ def test_default_device_is_cuda(tmp_path):
     assert list(tmp_path.iterdir()) == []
 
 
-def test_spans_off_open_no_profiler_range_and_read_no_clock(monkeypatch, fast_data):
-    """With no profiler and no recording, a fit and a predict_rank enter no
-    profiler range (neither the program's nor ``record_function``) and
-    read no clock for a span."""
+def _count_span_costs(monkeypatch) -> dict:
+    """Count the profiler ranges entered (the program's and
+    ``record_function``) and the span clock's reads from now on."""
     calls = {"range": 0, "record_function": 0, "clock": 0}
 
     def counting(key, fn):
@@ -123,6 +123,14 @@ def test_spans_off_open_no_profiler_range_and_read_no_clock(monkeypatch, fast_da
     for owner in (torch.profiler, torch.autograd.profiler):
         monkeypatch.setattr(owner, "record_function",
                             counting("record_function", owner.record_function))
+    return calls
+
+
+def test_spans_off_open_no_profiler_range_and_read_no_clock(monkeypatch, fast_data):
+    """With no profiler and no recording, a fit and a predict_rank enter no
+    profiler range (neither the program's nor ``record_function``) and
+    read no clock for a span."""
+    calls = _count_span_costs(monkeypatch)
     train, test = fast_data
     model = _fast_model().fit(train, epochs=1)
     assert model._staged_fast
@@ -180,6 +188,54 @@ def test_recording_keeps_the_layer_spans_nested_with_their_call(monkeypatch, fas
     assert len(rec.named("fingerprint")) == len(hashed) // 3 == 4
     for i, s in enumerate(rec.spans):
         assert 0 <= rec.self_ns(i) <= s.end_ns - s.start_ns
+
+
+RECOMMEND_PARTS = ("recommend.inputs", "recommend.exclude", "recommend.catalog",
+                   "recommend.topk", "recommend.result")
+
+
+@pytest.fixture(scope="module")
+def small_model():
+    return LightFM(no_components=4, random_state=2, device="cpu").fit(_small_interactions(),
+                                                                      epochs=1)
+
+
+@pytest.mark.parametrize("mode", ["auto", "compressed"])
+@pytest.mark.parametrize("excluded", [True, False], ids=["train", "no-train"])
+def test_recording_splits_recommend_into_its_parts(small_model, mode, excluded):
+    """A recorded ``recommend`` is one span whose parts follow one another
+    inside it, each its child with its call id: the inputs, the exclusion
+    list (only with ``train_interactions``), the catalog, the top-k of the
+    mode that runs and the result.  The answer is the unrecorded call's."""
+    train = _small_interactions() if excluded else None
+    users = np.array([3, 0, 17, 39])
+    with observability.recording() as rec:
+        scores, ids = small_model.recommend(users, k=6, train_interactions=train, mode=mode)
+    roots = [i for i, s in enumerate(rec.spans) if s.parent is None]
+    assert [rec.spans[i].name for i in roots] == ["recommend"]
+    top = rec.spans[roots[0]]
+    assert top.call is not None and {s.call for s in rec.spans} == {top.call}
+    parts = [s for s in rec.spans if s.parent == roots[0]]
+    assert [s.name for s in parts] == [
+        p for p in RECOMMEND_PARTS if excluded or p != "recommend.exclude"]
+    assert top.start_ns <= parts[0].start_ns and parts[-1].end_ns <= top.end_ns
+    for s, after in zip(parts, parts[1:]):
+        assert s.start_ns <= s.end_ns <= after.start_ns
+    want_scores, want_ids = small_model.recommend(users, k=6, train_interactions=train, mode=mode)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(scores, want_scores)
+
+
+def test_recommend_spans_off_open_no_profiler_range_and_read_no_clock(monkeypatch, small_model):
+    """With no profiler and no recording, ``recommend`` in either mode, with
+    and without an exclusion list, enters no profiler range and reads no
+    clock for its spans."""
+    calls = _count_span_costs(monkeypatch)
+    train = _small_interactions()
+    for mode in ("auto", "compressed"):
+        for excluded in (train, None):
+            small_model.recommend(np.arange(5), k=3, train_interactions=excluded, mode=mode)
+    assert calls == {"range": 0, "record_function": 0, "clock": 0}
 
 
 def test_kept_spans_are_on_the_profilers_clock():

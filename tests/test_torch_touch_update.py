@@ -270,7 +270,7 @@ def test_chunk_walk_is_the_one_device_update(name):
 def test_cuda_dispatch_takes_the_kernel(monkeypatch, adadelta):
     """On a CUDA table sparse_update hands the touches of either schedule,
     keyed by ``touch_order``, to its kernel (here the plain version, through
-    the same call), and the step counts the unmasked ones; the result is the
+    the same call), as does the step's pass of a table; the result is the
     CPU path's within the summation bound (adagrad: ``_bounds``; adadelta:
     ``test_torch_touch_adadelta._bounds``) and the L2 statistics agree
     (adagrad's bitwise; adadelta's kernel sums its own, and both lie within
@@ -300,7 +300,6 @@ def test_cuda_dispatch_takes_the_kernel(monkeypatch, adadelta):
         return real(types.SimpleNamespace(is_cuda=True), adadelta)
 
     monkeypatch.setattr(updates, "kernel_sums", on_card)
-    monkeypatch.setattr(losses, "kernel_sums", on_card)
     got = updates.sparse_update(*(x.clone() for x in args), adadelta=adadelta, **kw)
     assert len(calls) == 1
     at = 3 if adadelta else 2  # adadelta's kernel takes mom before the keys
@@ -316,10 +315,46 @@ def test_cuda_dispatch_takes_the_kernel(monkeypatch, adadelta):
         _assert_within(got[:2], cpu[:2], args[0], args[1], skeys, order, wg)
         assert torch.equal(got[3], cpu[3])
     assert torch.equal(got[4], cpu[4])
-    name = "update_kernel_touches.item"
     state = ModelState(*(x.clone() for x in args[:3] * 2), torch.tensor(0.0), torch.tensor(0.0))
-    before = observability.device_counter(name)
     step_kw = {k: v for k, v in kw.items() if k != "alpha"}
     losses._apply_touches(state, "item", None, tuple(args[3:]), [], 0.0,
                           dict(step_kw, adadelta=adadelta, need_stats=False), None)
-    assert observability.device_counter(name) - before == int(mask.sum())
+    assert len(calls) == 2  # the step hands its touches to the same kernel
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("schedule", ["adagrad", "adadelta"])
+def test_a_generic_fit_on_the_card_keeps_no_update_counter_on_the_device(card, schedule):
+    """A generic fit on the card hands each step's touches of both tables to
+    its schedule's kernel, and its steps add no count of those touches on
+    the device: no reduction a step for a counter that nothing reads."""
+    import scipy.sparse as sp
+
+    from lightfm_tpu_torch import LightFM
+    from lightfm_tpu_torch.ops import adadelta_update as ad
+
+    rng = np.random.RandomState(2)
+    rows = np.repeat(np.arange(300), 6)
+    cols = rng.randint(0, 200, rows.size)
+    inter = sp.coo_matrix((np.ones(rows.size, np.float32), (rows, cols)), shape=(300, 200))
+    model = LightFM(loss="warp", learning_schedule=schedule, item_alpha=1e-6, no_components=6,
+                    batch_size=256, fast_path="off", random_state=4, device="cuda")
+    kernels = ad if schedule == "adadelta" else au
+    kernels.reset_launches()
+    with observability.recording() as rec:
+        model.fit(inter, epochs=1)
+    torch.cuda.synchronize()
+    steps = len(rec.named("step"))
+    assert model._staged_fast is False and steps > 0
+    assert kernels.launches[f"touch_{schedule}_update"] == 2 * steps
+    assert rec.counters["update_touches.item"] > 0 and rec.counters["update_touches.user"] > 0
+    assert not [name for name, _ in observability._device_counts
+                if name.startswith("update_kernel_touches")]
+
